@@ -1,0 +1,92 @@
+"""Carry the JAX package's state over to the port.
+
+The JAX package's dataclasses and the port's share their field names, so
+state crosses as a dict of numpy arrays: `numpy_fields(obj)` reads one from
+either side (a JAX array or a torch tensor becomes a numpy array, static
+fields stay as they are), and the constructors below build the port's
+object from one. A round trip port → numpy_fields → port is exact.
+
+    St = convert.stencil_op(**convert.numpy_fields(St_jax), device="cpu")
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .config import resolve
+from .fem.bc import DirichletMaps
+from .fem.stencil_assembly import StencilAssemblyPlan
+from .ops.fused_cg import PaddedStencil, build_padded_stencil
+from .ops.sparse import SparseOp
+from .ops.stencil import StencilOp
+
+
+def _np(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if hasattr(v, "__array__"):
+        return np.asarray(v)
+    return v
+
+
+def numpy_fields(obj) -> dict:
+    """{field name: numpy array or static value} of a dataclass instance."""
+    return {f.name: _np(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+
+
+def _val(a, device, dtype):
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _idx(a, device):
+    return torch.tensor(np.asarray(a).astype(np.int64), device=device)
+
+
+def stencil_op(planes, dir_diag, slot, H, W, device=None, dtype=None) -> StencilOp:
+    device, dtype = resolve(device, dtype)
+    return StencilOp(planes=_val(planes, device, dtype),
+                     dir_diag=_val(dir_diag, device, dtype),
+                     slot=_idx(slot, device), H=int(H), W=int(W))
+
+
+def stencil_assembly_plan(factors, bfactors, b_fixed, dir_diag, free_mask, H,
+                          W, terms, bterms, device=None,
+                          dtype=None) -> StencilAssemblyPlan:
+    device, dtype = resolve(device, dtype)
+    v = lambda a: _val(a, device, dtype)  # noqa: E731
+    return StencilAssemblyPlan(
+        factors=v(factors), bfactors=v(bfactors), b_fixed=v(b_fixed),
+        dir_diag=v(dir_diag), free_mask=v(free_mask), H=int(H), W=int(W),
+        terms=tuple(tuple(int(e) for e in t) for t in terms),
+        bterms=tuple(tuple(int(e) for e in t) for t in bterms))
+
+
+def sparse_op(data, indptr, indices, rows, ell_idx, ell_cols, n_rows, n_cols,
+              device=None, dtype=None) -> SparseOp:
+    device, dtype = resolve(device, dtype)
+    return SparseOp(data=_val(data, device, dtype),
+                    indptr=_idx(indptr, device), indices=_idx(indices, device),
+                    rows=_idx(rows, device), ell_idx=_idx(ell_idx, device),
+                    ell_cols=_idx(ell_cols, device), n_rows=int(n_rows),
+                    n_cols=int(n_cols))
+
+
+def dirichlet_maps(free_g2l, dir_g2l, free_l2g, dir_l2g,
+                   is_dirichlet) -> DirichletMaps:
+    """Host-side numpy index maps, as in both packages."""
+    return DirichletMaps(np.asarray(free_g2l), np.asarray(dir_g2l),
+                         np.asarray(free_l2g), np.asarray(dir_l2g),
+                         np.asarray(is_dirichlet))
+
+
+def padded_stencil(planes, dir_diag, H, W, sym=None, device=None,
+                   dtype=None) -> PaddedStencil:
+    """The port's PaddedStencil from the 9-plane source of the JAX package's
+    (the two layouts differ: the TPU's is pre-blocked in 8-row/128-lane
+    tiles, Hopper's is not). `sym` as in build_padded_stencil."""
+    return build_padded_stencil(
+        stencil_op(planes, dir_diag, np.zeros(0, np.int64), H, W, device,
+                   dtype), sym=sym)

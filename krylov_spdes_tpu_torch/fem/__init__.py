@@ -1,0 +1,9 @@
+"""FEM layer of the port (mirrors krylov_spdes_tpu/fem)."""
+
+from .mesh import get_mesh, element_geometry, TriMesh  # noqa: F401
+from .bc import get_dirichlet_inds, append_bc, DirichletMaps  # noqa: F401
+from .assembly import (prepare_elliptic_assembly,  # noqa: F401
+                       do_isotropic_elliptic_assembly, assemble_values,
+                       EllipticAssembly)
+from .stencil_assembly import (prepare_stencil_assembly,  # noqa: F401
+                               stencil_assemble, make_stencil_operator)

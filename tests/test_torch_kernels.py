@@ -1,0 +1,124 @@
+"""PyTorch port, the CUDA kernels A-D against their plain PyTorch versions.
+
+The tests marked `cuda` need a CUDA device and nvcc; without a card they
+skip. This file imports no jax, so on a machine without jax it runs alone:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import krylov_spdes_tpu_torch.fem as tfem
+from krylov_spdes_tpu_torch.ops import fused_cg as tfc
+from krylov_spdes_tpu_torch.ops import stencil as tst
+from krylov_spdes_tpu_torch.ops import stencil_kernel as tsk
+
+torch.set_num_threads(1)
+
+
+def _system(nn, device, dtype, seed=9):
+    mesh = tfem.get_mesh(nn, jitter=0.2, seed=seed)
+    maps = tfem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    asm = tfem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps,
+                                         lambda x, y: -1.0 + 0.0 * x,
+                                         lambda x, y: 0.0 * x, device=device,
+                                         dtype=dtype)
+    coeff = np.exp(0.3 * np.random.default_rng(seed).normal(size=mesh.nnode))
+    A, b = tfem.do_isotropic_elliptic_assembly(asm, coeff)
+    m1 = int(round(np.sqrt(mesh.nnode)))
+    St = tst.build_stencil_op(A, maps, (m1, m1))
+    return St, tst.to_full_vector(maps, b, mesh.nnode)
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a CUDA device")
+
+
+def test_wrappers_take_plain_version_on_cpu():
+    St, b = _system(400, "cpu", torch.float64)
+    before = (tsk.stencil_spmv.launches, tfc.cg_sweep.launches,
+              tfc.whole_cg.launches, tfc.whole_pcg.launches)
+    np.testing.assert_array_equal(
+        tst.stencil_matvec(St, b).numpy(),
+        tsk.stencil_spmv_plain(St.planes, St.dir_diag, b).numpy())
+    ps = tfc.build_padded_stencil(St)
+    x, it, res = tfc.vmem_cg(ps, b, maxit=500)
+    assert float(res) <= 1e-7 * float(torch.linalg.vector_norm(b))
+    x2, it2, _ = tfc.fused_cg(ps, b, maxit=500)
+    assert int(it2) == int(it)
+    after = (tsk.stencil_spmv.launches, tfc.cg_sweep.launches,
+             tfc.whole_cg.launches, tfc.whole_pcg.launches)
+    assert after == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_a_matches_plain(dtype):
+    _need_card()
+    rng = np.random.default_rng(2)
+    for H, W in ((37, 53), (500, 500)):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")  # noqa
+        planes = t(rng.normal(size=(9, H, W)))
+        dd = t(rng.normal(size=(H, W)))
+        x = t(rng.normal(size=H * W))
+        n0 = tsk.stencil_spmv.launches
+        y = tsk.stencil_spmv(planes, dd, x)
+        assert tsk.stencil_spmv.launches == n0 + 1
+        # --fmad=false and the same sum order: bit-equal
+        torch.testing.assert_close(y, tsk.stencil_spmv_plain(planes, dd, x),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_b_c_d_match_plain(sym, dtype):
+    _need_card()
+    St, b = _system(2500, "cuda", dtype)
+    ps = tfc.build_padded_stencil(St, sym=sym)
+    assert ps.K == (5 if sym else 9)
+    bp = tfc.pad_vec(ps, b)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = tfc.pad_vec(ps, torch.randn(b.shape, generator=g, device="cuda",
+                                    dtype=dtype))
+    beta = torch.tensor(0.3, dtype=dtype, device="cuda")
+    pn, ap, d = tfc.cg_sweep(ps, bp, p, beta)
+    pn0, ap0, d0 = tfc.cg_sweep_plain(ps, bp, p, beta)
+    # --fmad=false and the same sum order: pn and Ap bit-equal; d is summed
+    # in another order
+    torch.testing.assert_close(pn, pn0, rtol=0, atol=0)
+    torch.testing.assert_close(ap, ap0, rtol=0, atol=0)
+    torch.testing.assert_close(d, d0, rtol=1e-5, atol=0)
+    # the sum's order is fixed: the same d on every run
+    assert all(bool(tfc.cg_sweep(ps, bp, p, beta)[2] == d) for _ in range(3))
+
+    tol2 = 1e-12 * torch.sum(bp * bp)
+    minv = tfc._jacobi_minv(ps, tfc._unblock_planes(ps), None)
+    for kern, plain, args in ((tfc.whole_cg, tfc.whole_cg_plain, (bp,)),
+                              (tfc.whole_pcg, tfc.whole_pcg_plain, (minv, bp))):
+        x, it, res = kern(ps, *args, 2000, tol2)
+        x0, it0, res0 = plain(ps, *args, 2000, tol2)
+        assert it.device.type == "cuda" and it.dtype == torch.int32
+        assert abs(int(it) - int(it0)) <= max(2, int(it0) // 20)
+        assert float(res) ** 2 <= float(tol2)
+        err = float(torch.linalg.vector_norm(x - x0)
+                    / torch.linalg.vector_norm(x0))
+        assert err <= (1e-8 if dtype == torch.float64 else 1e-3), err
+        # pads of x stay zero
+        r0 = tfc.ROW0
+        assert not (x[:r0].any() or x[r0 + ps.H:].any() or x[:, ps.W:].any())
+
+
+@pytest.mark.cuda
+def test_maxit_caps_the_whole_solve():
+    _need_card()
+    St, b = _system(2500, "cuda", torch.float64)
+    ps = tfc.build_padded_stencil(St)
+    for solve in (tfc.vmem_cg, tfc.vmem_pcg):
+        x, it, res = solve(ps, b, maxit=5)
+        assert int(it) == 5
+        x1, it1, _ = solve(ps, b, maxit=1)
+        assert int(it1) == 1 and float(x1.abs().sum()) == 0.0
