@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's stencil solve path on one NVIDIA GPU.
+"""Drive the PyTorch port on one NVIDIA GPU: the stencil solve path and the
+recycled MCMC chain.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from krylov_spdes_tpu_torch/csrc, holds each
-against its plain PyTorch version on the card, drives the main path through
+against its plain PyTorch version on the card, drives the main paths through
 the port's entry points, checks the results, and prints one JSON line per
-phase. Size: bench.py's system, a 500 x 500 grid (get_mesh(250000)) with
-coefficient exp(0.3·N(0,1)) from numpy seed 0, float32, maxit 2000,
-rtol 1e-6; then 4 seeded lognormal realizations certified at 1e-7.
+phase. Size: a 500 x 500 grid (get_mesh(250000)), float32. The stencil solve
+path runs bench.py's system (coefficient exp(0.3·N(0,1)) from numpy seed 0,
+maxit 2000, rtol 1e-6), then 2 seeded lognormal realizations certified at
+1e-7. The chain runs bench_chain.py's configuration: 25 sine modes with
+λ = exp(−0.2(a² + b²)) as the KL basis, nvec 16, spdim 48, maxit 5000, the
+float32 recurrence tolerance 1e-5.
 
 Phases:
   1. build      nvcc build time; the card's name and power limit
@@ -23,16 +27,40 @@ Phases:
                 vmem_pcg (D) on the bench system, then per realization
                 stencil_assemble -> refill_padded_stencil -> vmem_pcg ->
                 refined_pcg (A); each solve held against solvers.cg/pcg
-  6. kernels    one {"kernels": [...]} line with each kernel's launches on
-                the main path (all must be > 0) and its times
+  6. kernel_e   one stretch of eigDef-PCG on the operands of a real recycled
+                solve vs its plain version; small float64 solves through the
+                kernel vs solvers.eigdefpcg
+  7. kernel_f / kernel_g   the batched projections on the operands of a
+                batched chain step at B = 4 vs their plain versions (F also
+                vs torch.bmm)
+  8. chain      with the counts of E, F, G set to 0: prepare_chain_states ->
+                seed_chain (eigPCG) -> three make_chain_step steps, and in
+                step with them the same realizations through
+                refill_padded_stencil -> vmem_eigdefpcg (E) from the same W;
+                chain_parts: the draw, the assembly, the setup algebra of a
+                solve through E and the thick restart's dense algebra, each
+                alone; chain_device_share: the device's idle share of one
+                recycled solve through either path, and kernel E's device
+                time in it (torch.profiler)
+  9. chain_batched   seed_chains_batched -> two make_batched_chain_step
+                steps at B = 4, per-chain counts held against the
+                single-chain solver. The batched solver keeps its library
+                products and launches neither F nor G: this script calls
+                gemv_rows (F) and fused_reorth (G), entry points of their
+                own, on each step's operands, F held against the float64
+                product
+ 10. kl         solve_kl(method="dense") on a 2.5k-node mesh on the card, and
+                a short chain from its basis
+ 11. kernels    one {"kernels": [...]} line with each kernel's launches on
+                its main path (all must be > 0) and its times
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero; so does a host without a CUDA device, or a directory without the
 port's package beside this script. The bound of a kernel is the larger of
 its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s (the
-H100 SXM's published HBM rate and non-tensor float32 peak). Kernels A and
-B are timed with their operands cold in the 50 MB L2, so that the HBM rate
-bounds them; the run fails if any kernel's time is below its bound.
+H100 SXM's published HBM rate and non-tensor float32 peak). Kernels A, B, F
+and G are timed with their operands cold in the 50 MB L2, so that the HBM
+rate bounds them; the run fails if any kernel's time is below its bound.
 """
 
 from __future__ import annotations
@@ -52,7 +80,13 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 NNODE, MAXIT, RTOL, SIGMA = 250000, 2000, 1e-6, 0.3
-N_REALIZATIONS = 4
+N_REALIZATIONS = 2
+# the chain: bench_chain.py's configuration
+NVEC, SPDIM, CHAIN_MAXIT, CHAIN_RTOL = 16, 48, 5000, 1e-5
+KL_MODES, KL_DECAY, N_BATCH, KL_NNODE = 5, 0.2, 4, 2500
+# least cosine of the principal angles between the basis harvested through
+# kernel E and the torch path's, on the same realization from the same W
+W_COSINE_MIN = 0.9999
 L2_EVICT_BYTES = 200e6   # four times the H100's 50 MB L2
 
 
@@ -103,6 +137,30 @@ def device_ms(fn, reps, names=None):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if names is None or any(m in e.key for m in names))
     return us / reps / 1e3 if us > 0 else None
+
+
+def device_share(fn, names=None):
+    """Wall ms of fn() unprofiled, ms the device was busy in a profiled run
+    of it, the device's idle share of the wall time and, with `names`, the
+    device ms of the kernels whose name holds one of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    out = dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall)
+    if names is not None:
+        out["device_ms_of_" + "_".join(names)] = sum(
+            e.self_device_time_total for e in events
+            if any(m in e.key for m in names)) / 1e3
+    return out
 
 
 def timings(fn, reps, names=None):
@@ -203,16 +261,477 @@ def it_envelope(solve, b, n=5):
     residual crosses rtol·‖b‖ on a plateau, so a last-bit change moves the
     stop by up to ~15%: two orderings of the same sums can agree no closer
     than the counts this envelope spans."""
-    gen = torch.Generator(device=b.device).manual_seed(1)
-    r0 = solve(b)
-    its = [int(r0.it)]
-    for _ in range(n):
-        xi = torch.randint(-1, 2, b.shape, generator=gen, device=b.device)
-        its.append(int(solve(b * (1 + 2.0 ** -23 * xi.to(b.dtype))).it))
+    bs = perturbed(b, n)
+    r0 = solve(bs[0])
+    its = [int(r0.it)] + [int(solve(v).it) for v in bs[1:]]
     h = r0.history()
     tol = RTOL * float(torch.linalg.vector_norm(b))
     plateau = int(np.sum((h > tol) & (h <= 1.5 * tol)))
     return its, plateau
+
+
+def sine_basis(points):
+    """bench_chain.py's spectral stand-in for a KL basis (the dense KL is
+    O(n²) and the basis' provenance does not matter to the solvers):
+    KL_MODES² sine modes, λ = exp(−KL_DECAY·(a² + b²))."""
+    xs, ys = points[:, 0], points[:, 1]
+    modes, lams = [], []
+    for a in range(1, KL_MODES + 1):
+        for b in range(1, KL_MODES + 1):
+            modes.append(np.sin(np.pi * a * xs) * np.sin(np.pi * b * ys) * 2)
+            lams.append(np.exp(-KL_DECAY * (a * a + b * b)))
+    return np.asarray(lams), np.stack(modes, 1)
+
+
+def subspace_cosines(Wa, Wb):
+    """Cosines of the principal angles between span(Wa) and span(Wb)."""
+    Qa = torch.linalg.qr(Wa.double())[0]
+    Qb = torch.linalg.qr(Wb.double())[0]
+    return torch.linalg.svdvals(Qa.T @ Qb)
+
+
+def maxrel(a, b):
+    """max |a − b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def perturbed(b, n, seed=1):
+    """b and n copies of b changed in their last bit."""
+    gen = torch.Generator(device=b.device).manual_seed(seed)
+    out = [b]
+    for _ in range(n):
+        xi = torch.randint(-1, 2, b.shape, generator=gen, device=b.device)
+        out.append(b * (1 + 2.0 ** -23 * xi.to(b.dtype)))
+    return out
+
+
+def projection_operands(plan, g, W, nvec):
+    """The projection operands of a batched chain step on the fields g
+    (B, n) from the bases W (B, n, nvec), after its first CG update, formed
+    by the solver's own setup (solvers/batched.py): G = [Wᵀ; WᵀA·m]
+    (B, 2nvec, n), the residual r, the coefficients C = [cw | mu] and the
+    Jacobi diagonal m."""
+    from krylov_spdes_tpu_torch import chains
+    from krylov_spdes_tpu_torch.solvers import batched
+    A, m, b = chains.batched_system(plan, g)
+    o = batched.batched_operands(A, m, b, torch.zeros_like(b), W, nvec)
+    Ap = A(o["p"])
+    alpha = o["rTz"] / torch.sum(o["p"] * Ap, dim=1)
+    r = (o["r"] - alpha[:, None] * Ap).contiguous()
+    cw, mu = batched.projection_coefficients(o, r, nvec)
+    return (o["Gq"].contiguous(), r, torch.cat([cw, mu], dim=1).contiguous(),
+            m.contiguous())
+
+
+F_FLOOR, F_FLOOR_WTAM = 1e-7, 1e-6
+
+
+def check_projections(G, r, C, m, nvec):
+    """gemv_rows (F) and fused_reorth (G) through their wrappers, held
+    against the plain versions. Returns the max abs errors."""
+    from krylov_spdes_tpu_torch.ops import batched_proj as bp
+    U, U0 = bp.gemv_rows(G, r), bp.gemv_rows_plain(G, r)
+    # r is W-orthogonal up to rounding (deflated CG), so U is what is left
+    # of sums that cancel and the kernel and its plain version, which sum in
+    # different orders, agree only to rounding: both are held against the
+    # float64 product. The kernel may be at most twice as far from it as
+    # the plain version, plus a floor: F_FLOOR of the largest Σ|G||r| for
+    # all of U, and F_FLOOR_WTAM of the largest entry for the WᵀA·m half,
+    # which deflated CG does not drive to zero
+    U64 = (G.double() @ r.double()[..., None])[..., 0]
+    scale = float((G.double().abs() @ r.double().abs()[..., None]).max())
+    hi = slice(nvec, None)
+    dist = lambda u, rows=slice(None): float(            # noqa: E731
+        (u.double() - U64)[:, rows].abs().max())
+    f = dict(err=dist(U), err_plain=dist(U0), floor=F_FLOOR * scale,
+             err_wtam=dist(U, hi), err_wtam_plain=dist(U0, hi),
+             floor_wtam=F_FLOOR_WTAM * float(U64[:, hi].abs().max()),
+             max_abs_u=float(U64.abs().max()), max_abs_sums=scale)
+    check(f["err"] <= 2 * f["err_plain"] + f["floor"]
+          and f["err_wtam"] <= 2 * f["err_wtam_plain"] + f["floor_wtam"],
+          f"kernel F vs the float64 product: {f}")
+    out, ref = (bp.fused_reorth(G, C, r, m, nvec),
+                bp.fused_reorth_plain(G, C, r, m, nvec))
+    errs_g = [maxrel(a, c) for a, c in zip(out, ref)]
+    check(max(errs_g[:3]) <= 1e-6 and max(errs_g[3:]) <= 1e-4,
+          f"kernel G vs plain: max rel errs {errs_g}")
+    return (float((U - U0).abs().max()),
+            max(float((a - c).abs().max()) for a, c in zip(out, ref)),
+            f, errs_g)
+
+
+def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
+    """Phases 6-10: kernels E, F, G against their plain versions, then the
+    recycled chain, single and batched, and the dense KL front end."""
+    from krylov_spdes_tpu_torch import chains, fem, kl
+    from krylov_spdes_tpu_torch.ops import batched_proj as bproj
+    from krylov_spdes_tpu_torch.ops import fused_cg as fc
+    from krylov_spdes_tpu_torch.ops import vmem_eigdef as ve
+    from krylov_spdes_tpu_torch.ops.stencil import build_stencil_op, to_full_vector
+    from krylov_spdes_tpu_torch.samplers import samplers
+    from krylov_spdes_tpu_torch.solvers import eigdefpcg, eigpcg
+
+    sync = torch.cuda.synchronize
+    f32 = plan.factors.dtype
+    n = plan.H * plan.W
+    lam, psi = sine_basis(mesh.points)
+    opts = dict(nvec=NVEC, spdim=SPDIM, maxit=CHAIN_MAXIT)
+
+    def recycled(St, b, W):
+        """The torch path's solver on one realization, full-precision basis."""
+        return eigdefpcg(St, b, W=W, spdim=SPDIM, maxit=CHAIN_MAXIT,
+                         rtol=CHAIN_RTOL, Mdiag=1.0 / St.diagonal())
+
+    def envelope(St, bs, W, extra=()):
+        its = [int(recycled(St, v, W).it) for v in bs] + list(extra)
+        return its, (0.95 * min(its), 1.05 * max(its))
+
+    # ---- 6. kernel E: one stretch on the operands of a real solve -----------
+    s0 = chains.chain_state(chains.prepare_chain_states(lam, psi, 1), 0)
+    check(s0.g.device.type == dev and s0.g.dtype == f32,
+          "the sampler state lives on the plan's device")
+    W0, it_seed0 = chains.seed_chain(plan, s0, **opts)
+    s1, _ = samplers.draw(s0)
+    St1, b1 = fem.make_stencil_operator(plan, torch.exp(s1.g))
+    ps = fc.build_padded_stencil(St1)
+    RC = ps.R * ps.C
+    bp = fc.pad_vec(ps, b1)
+    minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    Wp = torch.stack([fc.pad_vec(ps, w) for w in W0.T.contiguous()])
+    o = ve.stretch_operands(ps, minv, bp, Wp)
+    tol2 = (CHAIN_RTOL * torch.linalg.vector_norm(bp)) ** 2
+    full = SPDIM - 1 - NVEC
+
+    def new_V():
+        V = bp.new_zeros((SPDIM, ps.R, ps.C))
+        V[:NVEC] = Wp
+        V[NVEC] = o["z"] / torch.sqrt(o["rTz"])
+        return V
+
+    def one_stretch(fn, V, nsteps):
+        return fn(ps, minv, o["G"], o["A1"], o["B"], o["x"].clone(),
+                  o["r"].clone(), o["p"].clone(), V, tol2, o["rTz"], o["rTr"],
+                  nsteps, NVEC)
+
+    Vk, Vp = new_V(), new_V()
+    errs_e, abs_e = {}, 0.0
+    # CG amplifies a last-bit difference from iteration to iteration, so the
+    # kernel is held to its plain version over 1 and 8 iterations; the full
+    # stretch's difference is reported
+    for nsteps, tol in ((1, 1e-5), (min(8, full), 2e-3), (full, None)):
+        k, pl = one_stretch(ve.stretch, Vk, nsteps), one_stretch(
+            ve.stretch_plain, Vp, nsteps)
+        sync()
+        check(int(k[7]) == int(pl[7]) == nsteps and bool(k[9]) == bool(pl[9]),
+              f"kernel E: cnt {int(k[7])} / plain {int(pl[7])} of {nsteps}")
+        cols = slice(NVEC + 1, NVEC + 1 + nsteps)
+        e = {"x": rel(k[0], pl[0]), "r": rel(k[1], pl[1]),
+             "p": rel(k[2], pl[2]), "V": rel(k[3][cols], pl[3][cols]),
+             "alpha": maxrel(k[4][:nsteps], pl[4][:nsteps]),
+             "beta": maxrel(k[5][:nsteps], pl[5][:nsteps]),
+             "res2": maxrel(k[6][:nsteps], pl[6][:nsteps]),
+             "rTz": abs(float(k[8]) - float(pl[8])) / abs(float(pl[8]))}
+        errs_e[nsteps] = e
+        if tol is not None:
+            check(max(e.values()) <= tol,
+                  f"kernel E vs plain over {nsteps} iterations: {e}")
+            abs_e = max(float((k[i] - pl[i]).abs().max()) for i in range(3))
+            abs_e = max(abs_e, float((k[3][cols] - pl[3][cols]).abs().max()))
+    # bytes: each operand once a launch; operations of the cnt iterations
+    flops_it = 35 + 4 * 2 * NVEC + 2 * NVEC
+    bnd, by = bound_ms((ps.K + 1 + 5 * NVEC + 3 + 3 + full) * RC * 4,
+                       flops_it * n * full)
+    kernels["E"] = dict(
+        name="eigdef_stretch", route="cuda",
+        source="krylov_spdes_tpu_torch/csrc/eigdef_stretch.cu",
+        replaces="krylov_spdes_tpu/ops/vmem_eigdef.py:96",
+        max_abs_err=abs_e, bound_ms=bnd, bound_by=by,
+        **timed(lambda: one_stretch(ve.stretch, Vk, full), 10,
+                ["stretch_kernel"],
+                lambda: one_stretch(ve.stretch_plain, Vp, full), 2))
+    # what one iteration streams when G, A1 and B do not fit the L2
+    streamed = (ps.K + 5 * NVEC + 19) * RC * 4 / HBM_BYTES_PER_S
+    check(kernels["E"]["ms"] / full >= 1e3 * streamed,
+          f"kernel E: {1e3 * kernels['E']['ms'] / full} us an iteration is "
+          f"below the {1e6 * streamed} us its streamed bytes take: the bound "
+          "or the timing is wrong")
+    emit("kernel_e", iterations=full, rel_err=errs_e,
+         tolerance={1: 1e-5, min(8, full): 2e-3},
+         max_abs_err_over=min(8, full),
+         us_per_iteration=1e3 * kernels["E"]["ms"] / full,
+         plain_us_per_iteration=1e3 * kernels["E"]["plain_ms_per_call"] / full,
+         streamed_bound_us_per_iteration=1e6 * streamed,
+         operands_mb=5 * NVEC * RC * 4 / 1e6, seed_it=int(it_seed0), card=card,
+         **{k: v for k, v in kernels["E"].items() if k not in NAMING})
+    del Vk, Vp, o, Wp
+
+    # small float64 solves through the kernel against solvers.eigdefpcg
+    f64 = dict(device=dev, dtype=torch.float64)
+    m_s = fem.get_mesh(900, jitter=0.2, seed=3)
+    maps_s = fem.get_dirichlet_inds(m_s.points, m_s.point_markers)
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    asm_s = fem.prepare_elliptic_assembly(m_s.cells, m_s.points, maps_s, f_src,
+                                          u_dir, **f64)
+    A_s, b_s = fem.do_isotropic_elliptic_assembly(
+        asm_s, np.exp(np.random.default_rng(0).normal(size=m_s.nnode)))
+    St_s = build_stencil_op(A_s, maps_s, (30, 30))
+    bf_s = to_full_vector(maps_s, b_s, m_s.nnode)
+    dinv_s = 1.0 / St_s.diagonal()
+    ps_s = fc.build_padded_stencil(St_s)
+    small = []
+    for nvec, spdim in ((4, 12), (8, 20), (4, 9)):
+        W_s = eigpcg(St_s, bf_s, M=lambda v: dinv_s * v, nvec=nvec,
+                     spdim=max(spdim, 2 * nvec + 4), maxit=400).W
+        ref = eigdefpcg(St_s, bf_s, W=W_s, spdim=spdim, maxit=400, Mdiag=dinv_s)
+        n0 = (ve.stretch.launches, ve._restart_iteration.calls)
+        x_s, it_s, _, _ = ve.vmem_eigdefpcg(ps_s, bf_s, W_s, spdim=spdim,
+                                            maxit=400)
+        err = rel(x_s, ref.x)
+        check(int(it_s) == int(ref.it) and err <= 1e-8,
+              f"kernel E float64 ({nvec}, {spdim}): it {int(it_s)} / "
+              f"{int(ref.it)}, x rel err {err}")
+        small.append(dict(nvec=nvec, spdim=spdim, it=int(it_s), x_rel_err=err,
+                          stretches=ve.stretch.launches - n0[0],
+                          restarts=ve._restart_iteration.calls - n0[1]))
+    emit("kernel_e_float64", cases=small, tolerance=1e-8, card=card)
+
+    # ---- 7. kernels F and G on the operands of a batched step ---------------
+    states4 = chains.prepare_chain_states(lam, psi, N_BATCH, base_key=10)
+    G4, r4, C4, m4 = projection_operands(plan, states4.g,
+                                         torch.stack([W0] * N_BATCH), NVEC)
+    abs_f, abs_g, err_f, errs_g = check_projections(G4, r4, C4, m4, NVEC)
+    bnd, by = bound_ms((G4.numel() + r4.numel() + N_BATCH * 2 * NVEC) * 4,
+                       2 * G4.numel())
+    kernels["F"] = dict(
+        name="gemv_rows", route="cuda",
+        source="krylov_spdes_tpu_torch/csrc/batched_proj.cu",
+        replaces="krylov_spdes_tpu/ops/batched_proj.py:48",
+        max_abs_err=abs_f, bound_ms=bnd, bound_by=by,
+        **timed(cold(bproj.gemv_rows, lambda: (G4.clone(), r4.clone())), 50,
+                ["gemv_rows_kernel", "row_sum_kernel"],
+                cold(bproj.gemv_rows_plain, lambda: (G4.clone(), r4.clone())),
+                10,
+                cold(lambda g_, r_: torch.bmm(g_, r_[..., None]),
+                     lambda: (G4.clone(), r4.clone()))))
+    emit("kernel_f", B=N_BATCH, K=2 * NVEC, n=n, against_float64=err_f,
+         tolerance="err <= 2 err_plain + floor, for U and for its WtA·m half",
+         library="torch.bmm", card=card,
+         **{k: v for k, v in kernels["F"].items() if k not in NAMING})
+    # one pass over the first nvec rows of G, r and m in, r', z, t1 out
+    bnd, by = bound_ms((N_BATCH * NVEC * n + 5 * N_BATCH * n) * 4,
+                       (4 * NVEC + 6) * N_BATCH * n)
+    g_args = lambda: (G4[:, :NVEC].clone(), C4.clone(), r4.clone(),  # noqa: E731
+                      m4.clone(), NVEC)
+    kernels["G"] = dict(
+        name="fused_reorth", route="cuda",
+        source="krylov_spdes_tpu_torch/csrc/batched_proj.cu",
+        replaces="krylov_spdes_tpu/ops/batched_proj.py:91",
+        max_abs_err=abs_g, bound_ms=bnd, bound_by=by,
+        **timed(cold(bproj.fused_reorth, g_args), 50,
+                ["fused_reorth_kernel", "row_sum_kernel"],
+                cold(bproj.fused_reorth_plain, g_args), 5))
+    emit("kernel_g", B=N_BATCH, nvec=NVEC, n=n, max_rel_err=errs_g,
+         tolerance={"vectors": 1e-6, "sums": 1e-4}, card=card,
+         **{k: v for k, v in kernels["G"].items() if k not in NAMING})
+    del G4, r4, C4, m4
+
+    # ---- 8. the chain, with the counts of E, F and G at 0 -------------------
+    counters = {"E": ve.stretch, "F": bproj.gemv_rows, "G": bproj.fused_reorth}
+    for fn in counters.values():
+        fn.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    s = chains.chain_state(chains.prepare_chain_states(lam, psi, 1), 0)
+    W, it_seed = chains.seed_chain(plan, s, **opts)
+    sync()
+    emit("chain_seed", it=int(it_seed), ms=1e3 * (time.perf_counter() - t0),
+         solver="eigpcg", card=card)
+    check(int(it_seed) < CHAIN_MAXIT, "chain: the seed solve hit maxit")
+    step = chains.make_chain_step(plan, **opts)
+    chain_steps = []
+    for k in range(3):
+        sync()
+        t0 = time.perf_counter()
+        s, W_t, it_t, cnt = step(s, W)
+        sync()
+        ms_t = 1e3 * (time.perf_counter() - t0)
+        # the same realization through kernel E from the same W
+        t0 = time.perf_counter()
+        St, b = fem.make_stencil_operator(plan, torch.exp(s.g))
+        ps = fc.refill_padded_stencil(ps, St)
+        sync()
+        refill_ms = 1e3 * (time.perf_counter() - t0)
+        n0 = (ve.stretch.launches, ve._restart_iteration.calls)
+        x_e, it_e, res_e, W_e = ve.vmem_eigdefpcg(
+            ps, b, W, spdim=SPDIM, maxit=CHAIN_MAXIT, rtol=CHAIN_RTOL)
+        sync()
+        ms_e = 1e3 * (time.perf_counter() - t0)
+        st = dict(refill_ms=refill_ms,
+                  stretches=ve.stretch.launches - n0[0],
+                  restarts=ve._restart_iteration.calls - n0[1])
+        chain_steps.append(dict(k=k, St=St, b=b, W=W, W_t=W_t, it_t=int(it_t),
+                                proposals=int(cnt), ms_t=ms_t, x_e=x_e,
+                                it_e=int(it_e), res_e=res_e, W_e=W_e,
+                                ms_e=ms_e, **st))
+        W = W_t
+
+    # the draw and the thick restart's small dense algebra alone (two eigh
+    # and an svd of at most SPDIM x SPDIM), on the last step's state
+    from krylov_spdes_tpu_torch.solvers.eig_common import thick_restart_basis
+    q = torch.linalg.qr(torch.randn(SPDIM, SPDIM, device=b.device,
+                                    dtype=b.dtype))[0]
+    T = (q * torch.linspace(0.1, 10.0, SPDIM, device=b.device,
+                            dtype=b.dtype)) @ q.T
+
+    def host_ms(fn, reps=5):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    # the setup algebra of a solve through kernel E, on the last step's system
+    c = chain_steps[-1]
+    bp_c = fc.pad_vec(ps, c["b"])
+    minv_c = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    Wp_c = torch.stack([fc.pad_vec(ps, w) for w in c["W"].T.contiguous()])
+    emit("chain_parts", draw_ms=host_ms(lambda: samplers.draw(s)),
+         stretch_operands_ms=host_ms(
+             lambda: ve.stretch_operands(ps, minv_c, bp_c, Wp_c)),
+         assemble_ms=host_ms(lambda: fem.make_stencil_operator(
+             plan, torch.exp(s.g))),
+         thick_restart_basis_ms=host_ms(
+             lambda: int(thick_restart_basis(T, NVEC, SPDIM)[2])),
+         spdim=SPDIM, nvec=NVEC, card=card)
+
+    # ---- 9. the batched chain ------------------------------------------------
+    sync()
+    t0 = time.perf_counter()
+    states = chains.prepare_chain_states(lam, psi, N_BATCH, base_key=10)
+    Wb, it0_b = chains.seed_chains_batched(plan, states, **opts)
+    sync()
+    emit("chain_batched_seed", its=it0_b.tolist(),
+         ms=1e3 * (time.perf_counter() - t0), card=card)
+    bstep = chains.make_batched_chain_step(plan, **opts)
+    batched_steps = []
+    for k in range(2):
+        sync()
+        t0 = time.perf_counter()
+        states, Wb_new, its_b, cnt_b = bstep(states, Wb)
+        sync()
+        ms_b = 1e3 * (time.perf_counter() - t0)
+        # the projection entry points on this step's operands
+        t0 = time.perf_counter()
+        proj = check_projections(*projection_operands(plan, states.g, Wb,
+                                                      NVEC), NVEC)
+        sync()
+        batched_steps.append(dict(k=k, g=states.g, W=Wb, its=its_b.tolist(),
+                                  proposals=cnt_b.tolist(), ms=ms_b,
+                                  proj_ms=1e3 * (time.perf_counter() - t0),
+                                  proj_err=proj[2:]))
+        Wb = Wb_new
+    launches = {key: fn.launches for key, fn in counters.items()}
+    emit("main_path_chain", launches=launches)
+    for key, n_launch in launches.items():
+        kernels[key]["launches"] = n_launch
+
+    # checks of the chain (the reference solves run after the counts)
+    for c in chain_steps:
+        St, b, W = c["St"], c["b"], c["W"]
+        ref = recycled(St, b, W)
+        its, allowed = envelope(St, perturbed(b, 3)[1:], W,
+                                extra=(int(ref.it), c["it_t"]))
+        bnorm = float(torch.linalg.vector_norm(b))
+        res_e = float(c["res_e"][c["it_e"] - 1])
+        check(c["it_t"] < CHAIN_MAXIT and c["it_e"] < CHAIN_MAXIT
+              and res_e <= CHAIN_RTOL * bnorm
+              and float(ref.res_norm[int(ref.it) - 1]) <= CHAIN_RTOL * bnorm,
+              f"chain step {c['k']}: a solve missed its tolerance")
+        check(allowed[0] <= c["it_e"] <= allowed[1],
+              f"chain step {c['k']}: kernel E it {c['it_e']} outside the "
+              f"envelope {allowed} of {its}")
+        err_x = rel(c["x_e"], ref.x)
+        check(err_x <= 1e-3, f"chain step {c['k']}: x rel err {err_x}")
+        tr, tr_ref = true_relres(St, b, c["x_e"]), true_relres(St, b, ref.x)
+        check(tr <= max(1e-5, 2 * tr_ref),
+              f"chain step {c['k']}: true residual {tr} / reference {tr_ref}")
+        cos_e = subspace_cosines(c["W_e"], ref.W)
+        cos_t = subspace_cosines(c["W_t"], ref.W)
+        check(float(cos_e.min()) >= W_COSINE_MIN,
+              f"chain step {c['k']}: W' of kernel E, cosines {cos_e.tolist()}")
+        emit("chain_step", k=c["k"], proposals=c["proposals"], it=c["it_t"],
+             ms=c["ms_t"], it_kernel_e=c["it_e"], ms_kernel_e=c["ms_e"],
+             stretches=c["stretches"], restarts=c["restarts"],
+             refill_ms=c["refill_ms"],
+             it_reference=int(ref.it), it_envelope=its, allowed=allowed,
+             x_rel_err=err_x, true_relres=tr, true_relres_reference=tr_ref,
+             w_cosines_kernel_e_min=float(cos_e.min()),
+             w_cosines_kernel_e=cos_e.tolist(),
+             w_cosines_bf16_step_min=float(cos_t.min()),
+             us_per_iteration=1e3 * c["ms_t"] / max(c["it_t"] - 1, 1),
+             us_per_iteration_kernel_e=1e3 * c["ms_e"] / max(c["it_e"] - 1, 1),
+             card=card)
+    mean_it = float(np.mean([c["it_t"] for c in chain_steps]))
+    mean_it_e = float(np.mean([c["it_e"] for c in chain_steps]))
+    check(mean_it < int(it_seed) and mean_it_e < int(it_seed),
+          f"chain: recycled its {mean_it} / {mean_it_e} not below the seed's "
+          f"{int(it_seed)}")
+    emit("chain", seed_it=int(it_seed), mean_recycled_it=mean_it,
+         mean_recycled_it_kernel_e=mean_it_e, card=card)
+    # how far the host holds the card back, on the last realization
+    c = chain_steps[-1]
+    emit("chain_device_share",
+         torch_path=device_share(lambda: recycled(c["St"], c["b"], c["W"])),
+         kernel_e_path=device_share(lambda: ve.vmem_eigdefpcg(
+             ps, c["b"], c["W"], spdim=SPDIM, maxit=CHAIN_MAXIT,
+             rtol=CHAIN_RTOL), ["stretch_kernel"]), card=card)
+
+    for c in batched_steps:
+        rows = []
+        for ch in range(N_BATCH):
+            St, b = fem.make_stencil_operator(plan, torch.exp(c["g"][ch]))
+            its, allowed = envelope(St, perturbed(b, 2), c["W"][ch])
+            check(c["its"][ch] < CHAIN_MAXIT, "chain_batched: maxit reached")
+            check(allowed[0] <= c["its"][ch] <= allowed[1],
+                  f"chain_batched step {c['k']} chain {ch}: it {c['its'][ch]} "
+                  f"outside the envelope {allowed} of {its}")
+            rows.append(dict(it=c["its"][ch], single_chain_its=its))
+        emit("chain_batched_step", k=c["k"], B=N_BATCH, its=c["its"],
+             proposals=c["proposals"], ms=c["ms"], chains=rows,
+             projections_ms=c["proj_ms"], projection_err=c["proj_err"],
+             us_per_iteration=1e3 * c["ms"] / max(max(c["its"]) - 1, 1),
+             card=card)
+    check(np.mean(batched_steps[-1]["its"]) < float(it0_b.float().mean()),
+          "chain_batched: recycled its not below the seeds'")
+
+    # ---- 10. the dense KL front end, and a short chain from its basis -------
+    sync()
+    t0 = time.perf_counter()
+    m_k = fem.get_mesh(KL_NNODE)
+    maps_k = fem.get_dirichlet_inds(m_k.points, m_k.point_markers)
+    M_k = fem.get_mass_matrix(m_k.cells, m_k.points)
+    lam_k, psi_k = kl.solve_kl(m_k.cells, m_k.points,
+                               kl.make_cov("sexp", 1.0, 0.3), 30, M_k,
+                               relative=0.99, method="dense")
+    sync()
+    ms_kl = 1e3 * (time.perf_counter() - t0)
+    gram = psi_k.T @ M_k.todense().double().cpu().numpy() @ psi_k
+    orth = float(np.abs(gram - np.eye(lam_k.shape[0])).max())
+    check(lam_k.shape[0] >= 3 and np.all(np.diff(lam_k) <= 0)
+          and np.all(lam_k > 0), f"kl: eigenvalues {lam_k}")
+    check(orth <= 1e-4, f"kl: |ΨᵀMΨ − I| = {orth}")
+    plan_k = fem.prepare_stencil_assembly(
+        m_k, maps_k, lambda x, y: -1.0 + 0.0 * x, lambda x, y: 0.0 * x)
+    _, its_k = chains.run_chains(plan_k, chains.prepare_chain_states(
+        lam_k, psi_k, 1), 4, nvec=10, spdim=26, maxit=1000)
+    its_k = its_k[0].tolist()
+    check(max(its_k) < 1000 and np.mean(its_k[1:]) < its_k[0],
+          f"kl: chain iterations {its_k}")
+    emit("kl", nnode=m_k.nnode, modes=int(lam_k.shape[0]), ms=ms_kl,
+         orthonormality=orth, tolerance=1e-4, chain_its=its_k, card=card)
 
 
 def run(card):
@@ -458,17 +977,21 @@ def run(card):
              **{k: real[k] for k in ("seed", "it", "certified_relres",
                                      "refine_sweeps", "certified_iters", "ms")})
 
-    # ---- 6. kernel list --------------------------------------------------------
     for key, n_launch in launches.items():
-        check(n_launch > 0, f"kernel {key} was not launched on the main path")
-        check(kernels[key]["ms"] >= kernels[key]["bound_ms"],
-              f"kernel {key}: {kernels[key]['ms']} ms is below its bound "
-              f"{kernels[key]['bound_ms']} ms: the bound or the timing is wrong")
         kernels[key]["launches"] = n_launch
+    run_chain_slice(card, mesh, plan, kernels)
+
+    # ---- 11. kernel list -------------------------------------------------------
+    for key, k in kernels.items():
+        check(k["launches"] > 0,
+              f"kernel {key} was not launched on its main path")
+        check(k["ms"] >= k["bound_ms"],
+              f"kernel {key}: {k['ms']} ms is below its bound "
+              f"{k['bound_ms']} ms: the bound or the timing is wrong")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[key][k] for k in order}
-                                  for key in "ABCD"]}), flush=True)
+                                  for key in "ABCDEFG"]}), flush=True)
 
 
 def main() -> int:

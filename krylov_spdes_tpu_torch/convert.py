@@ -90,3 +90,43 @@ def padded_stencil(planes, dir_diag, H, W, sym=None, device=None,
     return build_padded_stencil(
         stencil_op(planes, dir_diag, np.zeros(0, np.int64), H, W, device,
                    dtype), sym=sym)
+
+
+def sampler_state(xi, g, sqrt_lam, psi, kind, m_mcmc, sigma2, seed=0,
+                  key=None, device=None, dtype=None):
+    """The port's SamplerState from the numpy fields of the JAX package's
+    (`sampler_state(**numpy_fields(state_j))`). The JAX key has no
+    counterpart and is dropped: the state's generator is seeded with
+    `seed`."""
+    from .samplers.samplers import SamplerState, make_generator
+    device, dtype = resolve(device, dtype)
+    v = lambda a: _val(a, device, dtype)  # noqa: E731
+    return SamplerState(xi=v(xi), g=v(g), gen=make_generator(seed, device),
+                        sqrt_lam=v(sqrt_lam), psi=v(psi), kind=str(kind),
+                        m_mcmc=int(m_mcmc), sigma2=float(sigma2))
+
+
+def deflation_basis(W, device=None, dtype=None) -> torch.Tensor:
+    """A deflation basis W (n, nvec) as a contiguous tensor of the port."""
+    device, dtype = resolve(device, dtype)
+    return _val(W, device, dtype).contiguous()
+
+
+def padded_grids(ps: PaddedStencil, rows, device=None, dtype=None):
+    """Full-grid vectors → the port's padded layout.
+
+    rows: (k, n) array of k full-grid vectors: the G, A1, B or V operands of
+    a stretch (or one vector, k = 1), each taken off the JAX package's
+    8-row/128-lane padded layout with that package's `unpad_vec`. Returns a
+    (k, R, C) tensor on the port's layout, through the port's `pad_vec`."""
+    from .ops.fused_cg import pad_vec
+    device, dtype = resolve(device, dtype)
+    return torch.stack([pad_vec(ps, _val(row, device, dtype))
+                        for row in np.asarray(rows)])
+
+
+def full_rows(ps: PaddedStencil, grids) -> np.ndarray:
+    """The inverse of `padded_grids`: (k, R, C) padded grids of the port →
+    (k, n) numpy full-grid vectors, through the port's `unpad_vec`."""
+    from .ops.fused_cg import unpad_vec
+    return np.stack([_np(unpad_vec(ps, g)) for g in grids])

@@ -46,17 +46,11 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace cgr = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kRow0 = 2;  // zero rows above the first node row
-
-__device__ __forceinline__ long node_index(long t, int W, int C) {
-  const long i = t / W;
-  return (i + kRow0) * C + (t - i * W);
-}
 
 // Direction at padded index q: z + β·p with z = r (CG) or minv ⊙ r (PCG).
 template <typename T, bool PCG>
@@ -67,8 +61,7 @@ __device__ __forceinline__ T dir_at(const T* r, const T* p, const T* minv,
 }
 
 // (A·pn)[q] with pn = dir_at(...) recomputed at each of the 9 neighbours;
-// the node's own pn is returned through pn_self. Sum order follows
-// krylov_spdes_tpu/ops/fused_cg.py::_apply_full.
+// the node's own pn is returned through pn_self.
 template <typename T, int K, bool PCG>
 __device__ __forceinline__ T apply_dir(const T* __restrict__ P, long plane,
                                        const T* r, const T* p, const T* minv,
@@ -82,57 +75,9 @@ __device__ __forceinline__ T apply_dir(const T* __restrict__ P, long plane,
   const T vSW = dir_at<T, PCG>(r, p, minv, beta, q - C - 1);
   const T vSE = dir_at<T, PCG>(r, p, minv, beta, q + C - 1);
   const T vNW = dir_at<T, PCG>(r, p, minv, beta, q - C + 1);
-  T y;
-  if constexpr (K == 9) {
-    y = P[q] * v0;
-    y = y + P[1 * plane + q] * vE;
-    y = y + P[2 * plane + q] * vW;
-    y = y + P[3 * plane + q] * vN;
-    y = y + P[4 * plane + q] * vS;
-    y = y + P[5 * plane + q] * vNE;
-    y = y + P[6 * plane + q] * vSW;
-    y = y + P[7 * plane + q] * vSE;
-    y = y + P[8 * plane + q] * vNW;
-  } else {
-    const T* D = P;
-    const T* E = P + plane;
-    const T* N = P + 2 * plane;
-    const T* NE = P + 3 * plane;
-    const T* SE = P + 4 * plane;
-    y = D[q] * v0;
-    y = y + E[q] * vE;
-    y = y + E[q - 1] * vW;
-    y = y + N[q] * vN;
-    y = y + N[q - C] * vS;
-    y = y + NE[q] * vNE;
-    y = y + NE[q - C - 1] * vSW;
-    y = y + SE[q] * vSE;
-    y = y + SE[q - C + 1] * vNW;
-  }
   pn_self = v0;
-  return y;
-}
-
-// Sum over the block in a fixed tree order; every thread gets the result.
-template <typename T>
-__device__ T block_sum(T v, T* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  const T out = sh[0];
-  __syncthreads();
-  return out;
-}
-
-// Sum of part[0..G) in a fixed order: the same value in every block.
-template <typename T>
-__device__ T sum_partials(const T* part, int G, T* sh) {
-  T v = T(0);
-  for (int k = threadIdx.x; k < G; k += kThreads) v += part[k];
-  return block_sum(v, sh);
+  return apply_vals<T, K>(P, plane, q, C, v0, vE, vW, vN, vS, vNE, vSW, vSE,
+                          vNW);
 }
 
 // ---- B: one sweep ---------------------------------------------------------

@@ -4,6 +4,6 @@ from .mesh import get_mesh, element_geometry, TriMesh  # noqa: F401
 from .bc import get_dirichlet_inds, append_bc, DirichletMaps  # noqa: F401
 from .assembly import (prepare_elliptic_assembly,  # noqa: F401
                        do_isotropic_elliptic_assembly, assemble_values,
-                       EllipticAssembly)
+                       EllipticAssembly, get_mass_matrix)
 from .stencil_assembly import (prepare_stencil_assembly,  # noqa: F401
                                stencil_assemble, make_stencil_operator)

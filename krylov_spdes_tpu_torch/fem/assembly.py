@@ -146,3 +146,21 @@ def do_isotropic_elliptic_assembly(asm: EllipticAssembly, coeff_nodes):
     coeff = torch.as_tensor(coeff_nodes, dtype=data.dtype, device=data.device)
     a_data, b = assemble_values(asm.plan, coeff)
     return asm.op.with_data(a_data), b
+
+
+def get_mass_matrix(cells: np.ndarray, points: np.ndarray, dtype=None,
+                    device=None) -> SparseOp:
+    """Consistent P1 mass matrix over ALL nodes (Fem/EllipticPde.jl:412-466):
+    M_ij^e = area/6 if i==j else area/12."""
+    device, dtype = resolve(device, dtype)
+    nnode = int(cells.max()) + 1
+    _, _, area = element_geometry(cells, points)
+    local = (np.ones((3, 3)) + np.eye(3)) / 12.0            # 1/6 diag, 1/12 off
+    vals = area[:, None, None] * local                      # (nel,3,3)
+    gi = cells[:, :, None].repeat(3, axis=2)
+    gj = cells[:, None, :].repeat(3, axis=1)
+    op, slot = build_sparse_op(gi.ravel(), gj.ravel(), nnode, nnode,
+                               dtype=dtype, device=device)
+    data = np.zeros(op.nnz)
+    np.add.at(data, slot, vals.ravel())
+    return op.with_data(torch.as_tensor(data, dtype=dtype, device=device))

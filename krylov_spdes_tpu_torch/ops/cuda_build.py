@@ -3,9 +3,10 @@
 Each source under `csrc/` becomes one shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) at first use into `build/kernels/`
 at the root of the checkout. All missing libraries are compiled at once, one
-nvcc process per source. A library's file name carries a hash of its source
-and flags, so an edited source is rebuilt. Nothing is compiled at import
-time: the CPU tests import every module on hosts without nvcc.
+nvcc process per source. A library's file name carries a hash of its source,
+the shared headers and the flags, so an edited source is rebuilt. Nothing
+is compiled at import time: the CPU tests import every module on hosts
+without nvcc.
 
 Every C entry point returns `cudaGetLastError()` after its launch; `check`
 turns a non-zero code into an exception.
@@ -23,7 +24,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("stencil_spmv", "fused_cg")
+SOURCES = ("stencil_spmv", "fused_cg", "eigdef_stretch", "batched_proj")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false: every product and sum rounds on its own, as the plain
@@ -44,6 +45,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

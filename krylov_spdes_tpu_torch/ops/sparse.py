@@ -56,6 +56,11 @@ class SparseOp:
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return ell_spmv(self, x)
 
+    def todense(self) -> torch.Tensor:
+        out = self.data.new_zeros((self.n_rows, self.n_cols))
+        out[self.rows, self.indices] = self.data
+        return out
+
 
 def ell_spmv(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """SpMV through the ELL view: two gathers + a k-axis reduction."""

@@ -18,13 +18,14 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..fem.bc import DirichletMaps
 from .sparse import SparseOp
 from .stencil_kernel import OFFSETS, stencil_spmv
 
-__all__ = ["OFFSETS", "StencilOp", "stencil_matvec", "build_stencil_op",
-           "to_full_vector", "to_free_vector"]
+__all__ = ["OFFSETS", "StencilOp", "stencil_matvec", "stencil_matvec_batched",
+           "build_stencil_op", "to_full_vector", "to_free_vector"]
 
 
 @dataclasses.dataclass
@@ -111,3 +112,20 @@ def to_full_vector(maps: DirichletMaps, b_free: torch.Tensor, n_full: int):
 def to_free_vector(maps: DirichletMaps, x_full: torch.Tensor):
     return x_full[torch.as_tensor(maps.free_l2g, dtype=torch.int64,
                                   device=x_full.device)]
+
+
+def stencil_matvec_batched(planes, dir_diag, x):
+    """Batched y = A_b x_b over a leading chain axis, in plain torch ops (as
+    the JAX package leaves it to XLA): the batch axis rides along, so the
+    per-iteration launch latency is shared by the chains.
+
+    planes: (B, 9, H, W) per-chain stiffness planes; dir_diag (H, W) shared;
+    x (B, H·W). Same sum order as the unbatched apply."""
+    B = x.shape[0]
+    H, W = dir_diag.shape
+    x2 = x.reshape(B, H, W)
+    xp = F.pad(x2, (1, 1, 1, 1))
+    y = (planes[:, 0] + dir_diag[None]) * x2
+    for k, (di, dj) in enumerate(OFFSETS[1:], start=1):
+        y = y + planes[:, k] * xp[:, 1 + di:1 + di + H, 1 + dj:1 + dj + W]
+    return y.reshape(B, -1)

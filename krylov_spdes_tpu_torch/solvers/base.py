@@ -100,3 +100,11 @@ class SolveResult:
         h = self.history()
         bnorm = float(torch.linalg.vector_norm(torch.as_tensor(b)))
         return bool(h.size and np.isfinite(h[-1]) and h[-1] <= rtol * bnorm)
+
+
+def check_w_rank(W, frac: float = 0.9) -> bool:
+    """Deflation-basis health guard: True when rank(W) >= frac * nvec
+    (the reference's chain-abort criterion, Example09..._Functions.jl:358).
+    Host-side, with numpy's rank tolerance."""
+    W = W.detach().cpu().numpy() if torch.is_tensor(W) else np.asarray(W)
+    return bool(np.linalg.matrix_rank(W) >= frac * W.shape[1])

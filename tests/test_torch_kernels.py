@@ -1,4 +1,4 @@
-"""PyTorch port, the CUDA kernels A-D against their plain PyTorch versions.
+"""PyTorch port, the CUDA kernels A-G against their plain PyTorch versions.
 
 The tests marked `cuda` need a CUDA device and nvcc; without a card they
 skip. This file imports no jax, so on a machine without jax it runs alone:
@@ -11,9 +11,12 @@ import pytest
 import torch
 
 import krylov_spdes_tpu_torch.fem as tfem
+from krylov_spdes_tpu_torch.ops import batched_proj as tbp
 from krylov_spdes_tpu_torch.ops import fused_cg as tfc
 from krylov_spdes_tpu_torch.ops import stencil as tst
 from krylov_spdes_tpu_torch.ops import stencil_kernel as tsk
+from krylov_spdes_tpu_torch.ops import vmem_eigdef as tve
+from krylov_spdes_tpu_torch.solvers.defcg import eigdefpcg
 
 torch.set_num_threads(1)
 
@@ -122,3 +125,116 @@ def test_maxit_caps_the_whole_solve():
         assert int(it) == 5
         x1, it1, _ = solve(ps, b, maxit=1)
         assert int(it1) == 1 and float(x1.abs().sum()) == 0.0
+
+
+def test_efg_wrappers_take_plain_version_on_cpu():
+    St, b = _system(400, "cpu", torch.float64)
+    before = (tve.stretch.launches, tbp.gemv_rows.launches,
+              tbp.fused_reorth.launches)
+    ps = tfc.build_padded_stencil(St)
+    W = torch.linalg.qr(torch.tensor(
+        np.random.default_rng(0).normal(size=(St.n, 3))) * (St.dir_diag.reshape(-1, 1) == 0))[0]
+    x, it, res, Wn = tve.vmem_eigdefpcg(ps, b, W, spdim=8, maxit=300)
+    ref = eigdefpcg(St, b, W=W, spdim=8, maxit=300, Mdiag=1.0 / St.diagonal())
+    assert int(it) == int(ref.it)
+    G = torch.ones(2, 4, 10, dtype=torch.float64)
+    r = torch.ones(2, 10, dtype=torch.float64)
+    assert tbp.gemv_rows(G, r).shape == (2, 4)
+    assert tbp.fused_reorth(G, torch.ones(2, 4, dtype=torch.float64), r, r, 2)[0].shape == (2, 10)
+    after = (tve.stretch.launches, tbp.gemv_rows.launches,
+             tbp.fused_reorth.launches)
+    assert after == before
+
+
+def _stretch_operands(ps, b, W):
+    """The operands of the first stretch of a solve, as `_vmem_eigdef_impl`
+    builds them."""
+    bp = tfc.pad_vec(ps, b)
+    minv = tfc._jacobi_minv(ps, tfc._unblock_planes(ps), None)
+    Wp = torch.stack([tfc.pad_vec(ps, w) for w in W.T.contiguous()])
+    o = tve.stretch_operands(ps, minv, bp, Wp)
+    return (minv, o["G"].contiguous(), o["A1"].contiguous(),
+            o["B"].contiguous(), o["x"], o["r"], o["p"], o["rTz"], o["rTr"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_e_matches_plain(sym, dtype):
+    _need_card()
+    St, b = _system(2500, "cuda", dtype)
+    ps = tfc.build_padded_stencil(St, sym=sym)
+    nvec, spdim = 6, 20
+    g = torch.Generator(device="cuda").manual_seed(1)
+    W = torch.randn(St.n, nvec, generator=g, device="cuda", dtype=dtype) \
+        * (St.dir_diag.reshape(-1, 1) == 0)
+    minv, G, A1, B, x, r, p, rTz, rTr = _stretch_operands(ps, b, W)
+    tol2 = 1e-14 * rTr
+    outs = []
+    for fn in (tve.stretch, tve.stretch_plain):
+        V = torch.zeros(spdim, ps.R, ps.C, dtype=dtype, device="cuda")
+        n0 = tve.stretch.launches
+        outs.append(fn(ps, minv, G, A1, B, x.clone(), r.clone(), p.clone(), V,
+                       tol2, rTz, rTr, 9, nvec))
+        assert tve.stretch.launches == n0 + (fn is tve.stretch)
+    k, pl = outs
+    assert int(k[7]) == int(pl[7]) == 9 and bool(k[9]) == bool(pl[9])
+    tol = 1e-9 if dtype == torch.float64 else 2e-3
+    for a, c in zip(k[:7], pl[:7]):
+        err = float(torch.linalg.vector_norm(a - c) / torch.linalg.vector_norm(c))
+        assert err <= tol, err
+    assert abs(float(k[8]) - float(pl[8])) <= tol * abs(float(pl[8]))
+    # only the appended columns of V were written; pads stay zero
+    V = k[3]
+    assert not V[:nvec + 1].any() and not V[nvec + 10:].any()
+    r0 = tfc.ROW0
+    assert not (V[:, :r0].any() or V[:, r0 + ps.H:].any() or V[:, :, ps.W:].any())
+    # the sums have a fixed order: a second run repeats bit for bit
+    V2 = torch.zeros_like(V)
+    again = tve.stretch(ps, minv, G, A1, B, x.clone(), r.clone(), p.clone(),
+                        V2, tol2, rTz, rTr, 9, nvec)
+    assert torch.equal(again[4], k[4]) and torch.equal(again[0], k[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nvec,spdim", [(4, 12), (8, 20), (4, 9)])
+def test_vmem_eigdefpcg_on_card_matches_eigdefpcg(nvec, spdim):
+    _need_card()
+    St, b = _system(900, "cuda", torch.float64, seed=3)
+    ps = tfc.build_padded_stencil(St)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    W = torch.randn(St.n, nvec, generator=g, device="cuda",
+                    dtype=torch.float64) * (St.dir_diag.reshape(-1, 1) == 0)
+    ref = eigdefpcg(St, b, W=W, spdim=spdim, maxit=400,
+                    Mdiag=1.0 / St.diagonal())
+    n0 = tve.stretch.launches
+    x, it, res, Wn = tve.vmem_eigdefpcg(ps, b, W, spdim=spdim, maxit=400)
+    assert tve.stretch.launches > n0
+    assert int(it) == int(ref.it)
+    torch.testing.assert_close(x, ref.x, rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_f_g_match_plain(dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=dtype)  # noqa
+    for B, nvec, n in ((3, 8, 5000), (2, 5, 1025), (4, 16, 250000)):
+        K = 2 * nvec
+        G, r, C = rnd(B, K, n), rnd(B, n), rnd(B, 2 * nvec)
+        m = torch.rand(B, n, generator=g, device="cuda", dtype=dtype) + 0.5
+        n0 = (tbp.gemv_rows.launches, tbp.fused_reorth.launches)
+        U = tbp.gemv_rows(G, r)
+        out = tbp.fused_reorth(G, C, r, m, nvec)
+        assert (tbp.gemv_rows.launches, tbp.fused_reorth.launches) == (n0[0] + 1, n0[1] + 1)
+        rt = 1e-4 if dtype == torch.float32 else 1e-11
+        torch.testing.assert_close(U, tbp.gemv_rows_plain(G, r), rtol=rt,
+                                   atol=rt * n ** 0.5)
+        ref = tbp.fused_reorth_plain(G, C, r, m, nvec)
+        # --fmad=false and the same accumulation order: bit-equal vectors
+        for a, c in zip(out[:3], ref[:3]):
+            torch.testing.assert_close(a, c, rtol=0, atol=0)
+        for a, c in zip(out[3:], ref[3:]):
+            torch.testing.assert_close(a, c, rtol=rt, atol=0)
+        assert torch.equal(tbp.gemv_rows(G, r), U)
