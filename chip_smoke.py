@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one NVIDIA GPU: the stencil solve path and the
-recycled MCMC chain.
+"""Drive the PyTorch port on one NVIDIA GPU: the stencil solve path, the
+recycled MCMC chain and the Schur-DD flagship chain.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ path runs bench.py's system (coefficient exp(0.3·N(0,1)) from numpy seed 0,
 maxit 2000, rtol 1e-6), then 2 seeded lognormal realizations certified at
 1e-7. The chain runs bench_chain.py's configuration: 25 sine modes with
 λ = exp(−0.2(a² + b²)) as the KL basis, nvec 16, spdim 48, maxit 5000, the
-float32 recurrence tolerance 1e-5.
+float32 recurrence tolerance 1e-5. The Schur-DD chain runs bench.py's DD
+protocol (get_mesh(32000), 30 subdomains through prepare_dd_stencil_assembly,
+the same 25 sine modes, nvec 30, spdim 90, maxit 500) and the 500 x 500 grid
+in 8 x 8 tiles.
 
 Phases:
   1. build      nvcc build time; the card's name and power limit
@@ -51,7 +54,36 @@ Phases:
                 product
  10. kl         solve_kl(method="dense") on a 2.5k-node mesh on the card, and
                 a short chain from its basis
- 11. kernels    one {"kernels": [...]} line with each kernel's launches on
+  5b. kernel_h   the whole CG solve on the unpadded 9-plane layout
+                (stencil_cg) vs its plain version over 1 and 8 iterations,
+                and the bench system's solve under the limits of phase 5
+                against solvers.cg, its `it` on b and on last-bit copies of
+                b within 5% of the range its own plain version spans on the
+                same right-hand sides; main_path_h, with H's count set to 0:
+                stencil_cg on the bench system and on the realizations'
+                operators
+ 11. dd_protocol   seed_dd_chain (eigPCG + Neumann-Neumann on the interface
+                system), 4 warm-up and 5 timed make_dd_chain_step steps;
+                dd_repeat: one step twice from the same state and W, equal
+                `it` and bit-equal W'; dd_tf32: TF32 off inside a step even
+                with the caller's setting on; dd_parts: the draw, the refill,
+                the factorisation, assemble_local_schurs, _masked_pinv, one
+                Schur apply, one NN apply, the deflation setup and one thick
+                restart, each alone, and one solve's `it` with the pinv of
+                the float32 and of the float64 rule; dd_device_share: the
+                device's idle share
+                of one step (torch.profiler); dd_batched: B = 4,
+                seed_dd_chains_batched and 2 make_batched_dd_chain_step
+                steps, per-chain `its` (from W and from last-bit copies of W)
+                within 2 of the range of the single-chain step's
+ 12. dd_general    the general plan (mesh_partition(use_native=True) ->
+                set_subdomains -> prepare_dd_assembly, dense interiors) at
+                the protocol size, seed and 2 steps; dd_entry: entry()'s
+                step once; dd_full: the 500 x 500 grid in 8 x 8 tiles, seed
+                and 3 steps, then one step's merged DD solution against the
+                monolithic stencil system (float64 residual within twice the
+                solution's float32 floor)
+ 13. kernels    one {"kernels": [...]} line with each kernel's launches on
                 its main path (all must be > 0) and its times
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
@@ -72,6 +104,7 @@ import math
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -88,6 +121,12 @@ KL_MODES, KL_DECAY, N_BATCH, KL_NNODE = 5, 0.2, 4, 2500
 # kernel E and the torch path's, on the same realization from the same W
 W_COSINE_MIN = 0.9999
 L2_EVICT_BYTES = 200e6   # four times the H100's 50 MB L2
+# the Schur-DD chain: bench.py's DD protocol (32k nodes, 30 subdomains, nvec
+# 30, spdim max(3·ndom, 2·nvec + 1) = 90, maxit 500), and the 500 x 500 grid
+# in 8 x 8 tiles
+DD_NNODE, DD_NDOM, DD_NVEC, DD_MAXIT = 32000, 30, 30, 500
+DD_FULL_NDOM, DD_FULL_SPDIM = 64, 90
+H_ENVELOPE = 9     # last-bit copies of b behind kernel H's `it` envelope
 
 
 class CheckFailed(Exception):
@@ -124,9 +163,14 @@ def cuda_ms(fn, reps):
 
 
 def device_ms(fn, reps, names=None):
-    """Device time per call (ms) of the kernels fn() launches, summed from a
-    torch.profiler trace (kernels whose name holds one of `names`, or all);
-    None when the trace records no such device time."""
+    """(ms, how): device time per call of the kernels fn() launches, from a
+    torch.profiler trace (kernels whose name holds one of `names`, or all),
+    and how it was taken; (None, None) when the trace records no such device
+    time. A named kernel runs the same number of times in every call. In a
+    long process the trace can lose the records of some launches (their
+    count is then no multiple of `reps`, and their summed time too short):
+    each named kernel's time is the mean over the launches the trace did
+    record, times its launches a call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -134,9 +178,17 @@ def device_ms(fn, reps, names=None):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if names is None or any(m in e.key for m in names))
-    return us / reps / 1e3 if us > 0 else None
+    found = [e for e in prof.key_averages() if e.self_device_time_total > 0
+             and (names is None or any(m in e.key for m in names))]
+    if not found:
+        return None, None
+    if names is None or all(e.count % reps == 0 for e in found):
+        return sum(e.self_device_time_total for e in found) / reps / 1e3, "profiler"
+    a_call = [math.ceil(e.count / reps) for e in found]
+    ms = sum(e.self_device_time_total / e.count * k
+             for e, k in zip(found, a_call)) / 1e3
+    return ms, (f"profiler, mean of the {sum(e.count for e in found)} of "
+                f"{reps * sum(a_call)} launches that the trace recorded")
 
 
 def device_share(fn, names=None):
@@ -168,9 +220,9 @@ def timings(fn, reps, names=None):
     profiler (or, without one, the CUDA-event time per call), and the
     CUDA-event time per call with the host's launch overhead."""
     per_call = cuda_ms(fn, reps)
-    dev = device_ms(fn, reps, names)
+    dev, how = device_ms(fn, reps, names)
     return (per_call, per_call, "events") if dev is None else (
-        dev, per_call, "profiler")
+        dev, per_call, how)
 
 
 def nbytes(a):
@@ -584,15 +636,6 @@ def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
     T = (q * torch.linspace(0.1, 10.0, SPDIM, device=b.device,
                             dtype=b.dtype)) @ q.T
 
-    def host_ms(fn, reps=5):
-        fn()
-        sync()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        sync()
-        return 1e3 * (time.perf_counter() - t0) / reps
-
     # the setup algebra of a solve through kernel E, on the last step's system
     c = chain_steps[-1]
     bp_c = fc.pad_vec(ps, c["b"])
@@ -734,6 +777,436 @@ def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
          orthonormality=orth, tolerance=1e-4, chain_its=its_k, card=card)
 
 
+def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
+                 c_us_per_iteration):
+    """Phases kernel_h and main_path_h: the whole-solve CG kernel on the
+    unpadded 9-plane layout against its plain version, on bench.py's system
+    and on the realizations' operators."""
+    from krylov_spdes_tpu_torch.ops import pallas_cg as pc
+    from krylov_spdes_tpu_torch.solvers.cg import cg
+
+    n = St.n
+    bnorm = float(torch.linalg.vector_norm(b_full))
+    # CG amplifies a last-bit difference from iteration to iteration (the
+    # kernel and the plain version reduce in different orders), so the kernel
+    # is held to its plain version over 1 and 8 iterations, as kernel E is
+    errs, abs_h = {}, 0.0
+    for its, tol in ((1, 1e-5), (8, 2e-3)):
+        xk, itk, resk = pc.stencil_cg(St, b_full, its + 1, 1e-30)
+        xp, itp, resp = pc.stencil_cg_plain(St, b_full, its + 1, 1e-30)
+        check(int(itk) == int(itp) == its + 1,
+              f"kernel H: it {int(itk)} / plain {int(itp)} of {its + 1}")
+        errs[its] = {"x": rel(xk, xp),
+                     "res": abs(float(resk) - float(resp)) / float(resp)}
+        check(max(errs[its].values()) <= tol,
+              f"kernel H vs plain over {its} iterations: {errs[its]}")
+        abs_h = float((xk - xp).abs().max())
+    xk, itk, resk = pc.stencil_cg(St, b_full, MAXIT, RTOL)
+    itk = int(itk)
+    # the three limits of phase 5's solves, against solvers.cg
+    check(float(resk) <= RTOL * bnorm, f"kernel H: residual {float(resk)}")
+    # `it` against the envelope of H's own plain version (the kernel's
+    # arithmetic step by step, which differs from solvers.cg's in the order
+    # of its updates): the plain version's counts on b and on H_ENVELOPE
+    # copies of b changed in their last bit, and the kernel's counts on the
+    # same right-hand sides, every one of which must lie within 5% of the
+    # range the plain version's span
+    rhs = perturbed(b_full, H_ENVELOPE)
+    its_plain = [int(pc.stencil_cg_plain(St, v, MAXIT, RTOL)[1]) for v in rhs]
+    its_kernel = [itk] + [int(pc.stencil_cg(St, v, MAXIT, RTOL)[1])
+                          for v in rhs[1:]]
+    allowed = (0.95 * min(its_plain), 1.05 * max(its_plain))
+    check(all(allowed[0] <= i <= allowed[1] for i in its_kernel),
+          f"kernel H: its {its_kernel} outside {allowed}, the envelope of "
+          f"the plain version's {its_plain} (solvers.cg {int(ref_cg.it)})")
+    err_x = rel(xk, ref_cg.x)
+    check(err_x <= 1e-3, f"kernel H: x rel err {err_x}")
+    tr, tr_ref = true_relres(St, b_full, xk), true_relres(St, b_full, ref_cg.x)
+    check(tr <= max(1e-5, 2 * tr_ref),
+          f"kernel H: true residual {tr} / reference {tr_ref}")
+    x2, it2, _ = pc.stencil_cg(St, b_full, MAXIT, RTOL)
+    check(int(it2) == itk and torch.equal(x2, xk),
+          "kernel H: a solve does not repeat bit for bit")
+    # C's method: inputs (9 planes, dir_diag, b) read once and x written
+    # once; the operations the function needs in the iterations this run's
+    # data took (a node an iteration: the direction r + β·p 2, the 9-plane
+    # apply with dir_diag 18, pᵀAp 2, x 2, r 2, rᵀr 2). The kernel's own
+    # recomputation of the direction at the eight neighbours is its design,
+    # not the function's work, and is not counted
+    bnd, by = bound_ms(12 * n * 4, 28 * n * (itk - 1))
+    kernels["H"] = dict(
+        name="stencil_cg", route="cuda",
+        source="krylov_spdes_tpu_torch/csrc/stencil_cg.cu",
+        replaces="krylov_spdes_tpu/ops/pallas_cg.py:43",
+        max_abs_err=abs_h, bound_ms=bnd, bound_by=by,
+        **timed(lambda: pc.stencil_cg(St, b_full, MAXIT, RTOL), 5,
+                ["stencil_cg_kernel"],
+                lambda: pc.stencil_cg_plain(St, b_full, MAXIT, RTOL), 1))
+    emit("kernel_h", it=itk, it_solvers_cg=int(ref_cg.it),
+         its_plain_version_last_bit_changes_of_b=its_plain,
+         its_kernel_last_bit_changes_of_b=its_kernel, allowed=allowed,
+         rel_err=errs,
+         tolerance={1: 1e-5, 8: 2e-3}, max_abs_err_over=8, x_rel_err=err_x,
+         true_relres=tr, true_relres_reference=tr_ref,
+         us_per_iteration=1e3 * kernels["H"]["ms"] / (itk - 1),
+         kernel_c_us_per_iteration=c_us_per_iteration, library="none",
+         card=card, **{k: v for k, v in kernels["H"].items()
+                       if k not in NAMING})
+
+    # the main path of H, with its count at 0
+    pc.stencil_cg.launches = 0
+    solves = []
+    for S_r, b_r in [(St, b_full)] + [(r["St"], r["b"]) for r in realizations]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it, res = pc.stencil_cg(S_r, b_r, MAXIT, RTOL)
+        torch.cuda.synchronize()
+        solves.append((S_r, b_r, x, int(it), float(res),
+                       1e3 * (time.perf_counter() - t0)))
+    kernels["H"]["launches"] = pc.stencil_cg.launches
+    emit("main_path_h", launches={"H": pc.stencil_cg.launches})
+    for k, (S_r, b_r, x, it, res, ms) in enumerate(solves):
+        ref = ref_cg if k == 0 else cg(S_r, b_r, maxit=MAXIT, rtol=RTOL)
+        check(it < MAXIT and res <= RTOL * float(torch.linalg.vector_norm(b_r)),
+              f"stencil_cg solve {k}: it {it}, residual {res}")
+        tr, tr_ref = true_relres(S_r, b_r, x), true_relres(S_r, b_r, ref.x)
+        check(tr <= max(1e-5, 2 * tr_ref),
+              f"stencil_cg solve {k}: true residual {tr} / reference {tr_ref}")
+        emit("solve_stencil_cg", system="bench" if k == 0 else f"realization {k}",
+             it=it, it_solvers_cg=int(ref.it), x_rel_err=rel(x, ref.x),
+             true_relres=tr, true_relres_reference=tr_ref, ms=ms,
+             us_per_iteration=1e3 * ms / max(it - 1, 1), card=card)
+
+
+def clone_state(s):
+    """A sampler state (single or batched) with copies of its generators, so
+    that a step can be run again from the same random stream."""
+    def copy(gen):
+        out = torch.Generator(device=gen.device)
+        out.set_state(gen.get_state())
+        return out
+    gen = [copy(g) for g in s.gen] if isinstance(s.gen, list) else copy(s.gen)
+    return dataclasses.replace(s, gen=gen)
+
+
+def host_ms(fn, reps=5):
+    """Host-clock ms per call of fn(), synchronised, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def tf32_off():
+    return not (torch.backends.cuda.matmul.allow_tf32
+                or torch.get_float32_matmul_precision() != "highest")
+
+
+def dd_chain(card, phase, plan, part, state, nvec, spdim, maxit, warm, steps):
+    """seed_dd_chain, `warm` untimed steps and `steps` timed ones; checks
+    `it` < maxit and the mean recycled `it` below the seed's. Returns the
+    final (state, W) and, for the last step, (state before, W before)."""
+    from krylov_spdes_tpu_torch import dd_chains
+    sync = torch.cuda.synchronize
+    sync()
+    t0 = time.perf_counter()
+    W, it0, _ = dd_chains.seed_dd_chain(plan, part, state, nvec, spdim, maxit)
+    sync()
+    seed_ms = 1e3 * (time.perf_counter() - t0)
+    check(int(it0) < maxit, f"{phase}: the seed solve hit maxit")
+    step = dd_chains.make_dd_chain_step(plan, part, nvec=nvec, spdim=spdim,
+                                        maxit=maxit)
+    rows, before = [], None
+    for k in range(warm + steps):
+        before = (clone_state(state), W)
+        sync()
+        t0 = time.perf_counter()
+        state, W, it, cnt = step(state, W)
+        sync()
+        rows.append(dict(it=int(it), proposals=int(cnt),
+                         ms=1e3 * (time.perf_counter() - t0),
+                         timed=k >= warm))
+        check(int(it) < maxit, f"{phase}: step {k} hit maxit")
+        check(tf32_off(), f"{phase}: TF32 is on after step {k}")
+        check(bool(torch.isfinite(W).all()), f"{phase}: W' is not finite")
+    mean_it = float(np.mean([r["it"] for r in rows]))
+    check(mean_it < int(it0), f"{phase}: mean recycled it {mean_it} not below "
+                              f"the seed's {int(it0)}")
+    emit(phase, ndom=plan.ndom, nI=plan.nI, nG=plan.nG, n_gamma=plan.n_gamma,
+         nvec=nvec, spdim=spdim, maxit=maxit, seed_it=int(it0),
+         seed_ms=seed_ms, steps=rows, mean_recycled_it=mean_it,
+         median_ms_per_step=float(np.median(
+             [r["ms"] for r in rows if r["timed"]])), card=card)
+    return state, W, before, step
+
+
+def run_dd_slice(card, mesh250, dev="cuda"):
+    """The Schur-DD flagship chain: DD refill -> condensation ->
+    Neumann-Neumann -> recycled eigDef-PCG on Γ, single and batched."""
+    from krylov_spdes_tpu_torch import chains, dd_chains, entry, fem
+    from krylov_spdes_tpu_torch.fem import dd_stencil, schur
+    from krylov_spdes_tpu_torch.samplers import samplers
+    from krylov_spdes_tpu_torch.solvers.cg import pcg
+    from krylov_spdes_tpu_torch.solvers.defcg import _deflation_setup, _eigdef_impl
+    from krylov_spdes_tpu_torch.solvers.eig_common import thick_restart_basis
+
+    sync = torch.cuda.synchronize
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    ndom, nvec, maxit = DD_NDOM, DD_NVEC, DD_MAXIT
+    spdim = max(3 * ndom, 2 * nvec + 1)
+
+    def one_state(lam, psi, key=0):
+        return chains.chain_state(chains.prepare_chain_states(
+            lam, psi, 1, base_key=key), 0)
+
+    # ---- dd_protocol: bench.py's DD configuration ----------------------------
+    t0 = time.perf_counter()
+    mesh = fem.get_mesh(DD_NNODE)
+    maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    epart, part, plan = dd_stencil.prepare_dd_stencil_assembly(
+        mesh, maps, f_src, u_dir, ndom)
+    lam, psi = sine_basis(mesh.points)
+    emit("dd_setup", nnode=mesh.nnode, ndom=ndom, hM=plan.hM, wM=plan.wM,
+         nI=plan.nI, nG=plan.nG, n_gamma=plan.n_gamma,
+         seconds=time.perf_counter() - t0)
+    check(plan.kflat.is_cuda and plan.kflat.dtype == torch.float32,
+          "the DD plan lives on the card in float32")
+    state, W, (s_prev, W_prev), step = dd_chain(
+        card, "dd_protocol", plan, part, one_state(lam, psi), nvec, spdim,
+        maxit, warm=4, steps=5)
+
+    # ---- dd_repeat: one step twice from the same state and W ------------------
+    out = [step(clone_state(s_prev), W_prev) for _ in range(2)]
+    check(int(out[0][2]) == int(out[1][2]) and out[0][3] == out[1][3],
+          f"dd_repeat: it {int(out[0][2])} / {int(out[1][2])}")
+    check(torch.equal(out[0][1], out[1][1]) and torch.equal(out[0][0].g,
+                                                            out[1][0].g),
+          "dd_repeat: W' differs between two runs of one step")
+    emit("dd_repeat", it=int(out[0][2]), w_bit_equal=True, card=card)
+
+    # ---- TF32 stays off inside a step even when the caller turned it on ------
+    seen = []
+    W_c, _, M_c = dd_chains.seed_dd_chain(plan, part, s_prev, nvec, spdim,
+                                          maxit, constant_precond=True)
+
+    def probe(r):
+        seen.append(torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+        return M_c(r)
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, _, it_c, _ = dd_chains.make_dd_chain_step(
+            plan, part, nvec=nvec, spdim=spdim, maxit=maxit,
+            M_const=probe)(clone_state(s_prev), W_c)
+        restored = torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(seen and not any(seen) and restored,
+          f"dd_tf32: TF32 on inside a step ({sum(seen)} of {len(seen)} "
+          f"applies), restored {restored}")
+    check(int(it_c) < maxit, "dd_tf32: the constant-preconditioner step hit maxit")
+    emit("dd_tf32", applies_seen=len(seen), tf32_on_inside=False,
+         it_constant_precond=int(it_c), card=card)
+
+    # ---- dd_parts: the parts of one step, each alone --------------------------
+    g = s_prev.g
+    coeff = torch.exp(g)
+    subs = dd_stencil._tile_inputs(plan, coeff)[1]
+    D, E = dd_stencil._interior_blocks(plan, subs)
+    S, b_s, _ = dd_stencil.condense_dd_stencil(plan, coeff)
+    Sd = schur.assemble_local_schurs(S)
+    kept = schur._masked_pinv(Sd, S.gmask, return_kept=True)[1]
+    A = schur.assembled_schur_operator(S, Sd=Sd)
+    M = schur.prepare_neumann_neumann_schur_precond(S, Sd=Sd)
+    q = torch.linalg.qr(torch.randn(spdim, spdim, device=dev))[0]
+    T = (q * torch.linspace(0.1, 10.0, spdim, device=dev)) @ q.T
+    # kept eigenvalues of the pinv (rule: λ > √eps·max|λ|, eps of the working
+    # type). A floating tile's local Schur complement has the constants as
+    # its null space, a tile on the Dirichlet boundary has none: that is what
+    # the rule keeps when the same realization is condensed in float64 (the
+    # blocks must be float64 too: the null mode of blocks rounded to float32
+    # sits at ~1e-7·max|λ|, above float64's √eps). In float32 √eps = 3.5e-4
+    # also drops genuine small eigenvalues where the coefficient's contrast
+    # inside a tile is large; it must never keep more than float64 does,
+    # and is reported beside it
+    n_gd = S.gmask.sum(dim=1).to(torch.int64)
+    plan64 = dd_stencil.prepare_dd_stencil_assembly(
+        mesh, maps, f_src, u_dir, ndom, dtype=torch.float64)[2]
+    S64 = dd_stencil.condense_dd_stencil(plan64, coeff.double())[0]
+    P64, kept64 = schur._masked_pinv(schur.assemble_local_schurs(S64),
+                                     S64.gmask, return_kept=True)
+    del plan64, S64
+    check(bool((kept <= kept64).all()) and bool((kept >= 1).all())
+          and bool((n_gd - kept64 <= 1).all()),
+          f"dd_parts: pinv kept {kept.tolist()} (float64 rule "
+          f"{kept64.tolist()}) of {n_gd.tolist()}")
+    # what the float32 rule costs: the same float32 solve (this realization,
+    # the recycled basis W) with the NN preconditioner from the float32 pinv
+    # and from the float64 pinv of the float64 blocks, rounded to float32
+    M64 = partial(schur._nn_apply, P64.float(), S.gammad_to_gamma, S.gmask,
+                  S.gamma_gather, 1.0 / S.gamma_cnt)
+    it_rule = {k: int(_eigdef_impl(
+        A, Mk, b_s, torch.zeros_like(b_s), W_prev, nvec, spdim, maxit,
+        chains.effective_rtol(torch.float32), True, True)[1])
+        for k, Mk in (("float32", M), ("float64", M64))}
+    check(max(it_rule.values()) < maxit, f"dd_parts: solves {it_rule}")
+    emit("dd_parts", card=card, it_by_pinv_rule=it_rule,
+         draw_ms=host_ms(lambda: samplers.draw(clone_state(s_prev))),
+         refill_ms=host_ms(lambda: dd_stencil._tile_inputs(plan, coeff)),
+         interior_blocks_ms=host_ms(
+             lambda: dd_stencil._interior_blocks(plan, subs)),
+         factorisation_ms=host_ms(lambda: schur.bt_factor_batched(D, E)),
+         condense_ms=host_ms(
+             lambda: dd_stencil.condense_dd_stencil(plan, coeff)),
+         assemble_local_schurs_ms=host_ms(
+             lambda: schur.assemble_local_schurs(S)),
+         masked_pinv_ms=host_ms(lambda: schur._masked_pinv(Sd, S.gmask)),
+         schur_apply_ms=host_ms(lambda: A(b_s), 20),
+         schur_apply_matrix_free_ms=host_ms(lambda: S.matvec(b_s)),
+         nn_apply_ms=host_ms(lambda: M(b_s), 20),
+         deflation_setup_ms=host_ms(lambda: _deflation_setup(
+             A, W_prev, torch.zeros_like(b_s), b_s)),
+         thick_restart_basis_ms=host_ms(
+             lambda: int(thick_restart_basis(T, nvec, spdim)[2])),
+         pinv_kept_per_tile=kept.tolist(),
+         pinv_kept_per_tile_float64_rule=kept64.tolist(),
+         n_gammad=n_gd.tolist(), spdim=spdim, nvec=nvec)
+    emit("dd_device_share", card=card,
+         **device_share(lambda: step(clone_state(s_prev), W_prev)))
+    del subs, D, E, S, Sd, A, M, M64, P64
+
+    # ---- dd_batched: B = 4 on the protocol mesh --------------------------------
+    states = chains.prepare_chain_states(lam, psi, N_BATCH, base_key=10)
+    sync()
+    t0 = time.perf_counter()
+    Wb, its0 = dd_chains.seed_dd_chains_batched(plan, part, states, nvec,
+                                                spdim, maxit)
+    sync()
+    seed_ms = 1e3 * (time.perf_counter() - t0)
+    bstep = dd_chains.make_batched_dd_chain_step(plan, part, nvec=nvec,
+                                                 spdim=spdim, maxit=maxit)
+    rows = []
+    for k in range(2):
+        # the single-chain step from the same state, and from W and 4 copies
+        # of W changed in their last bit: in float32 a solve that needs 35
+        # iterations moves by several under such a change, so the batched
+        # count is held within 2 (the JAX tests' own limit between the two
+        # layouts, in float64) of the range these span. The batched step
+        # from the same 4 copies is held to the same limit: if its counts
+        # move as the single-chain step's do, the spread is rounding and not
+        # the batched layout
+        W_copies = [perturbed(Wb[c], 4) for c in range(N_BATCH)]
+        single = [[int(step(chains.chain_state(clone_state(states), c), Wc)[2])
+                   for Wc in W_copies[c]] for c in range(N_BATCH)]
+        batched = [bstep(clone_state(states), torch.stack(
+            [W_copies[c][j] for c in range(N_BATCH)]))[2].tolist()
+            for j in range(1, 5)]
+        sync()
+        t0 = time.perf_counter()
+        states, Wb, its, cnt = bstep(states, Wb)
+        sync()
+        ms = 1e3 * (time.perf_counter() - t0)
+        its = its.tolist()
+        check(max(its) < maxit, f"dd_batched: step {k} hit maxit")
+        batched = [list(col) for col in zip(its, *batched)]
+        check(all(min(s) - 2 <= it <= max(s) + 2
+                  for bs, s in zip(batched, single) for it in bs),
+              f"dd_batched step {k}: its {batched} / single-chain {single}")
+        rows.append(dict(its=its, single_chain_its=[s[0] for s in single],
+                         single_chain_its_last_bit_changes_of_w=single,
+                         its_last_bit_changes_of_w=batched,
+                         proposals=cnt.tolist(), ms=ms,
+                         us_per_iteration=1e3 * ms / max(max(its) - 1, 1)))
+    check(np.mean(rows[-1]["its"]) < float(its0.float().mean()),
+          "dd_batched: recycled its not below the seeds'")
+    emit("dd_batched", B=N_BATCH, seed_its=its0.tolist(), seed_ms=seed_ms,
+         steps=rows, tolerance="the batched step's it, from W and from 4 "
+         "last-bit changes of W, within 2 of the range of the single-chain "
+         "step's it from the same 5", card=card)
+
+    # ---- dd_general: partitioner + routing plan, dense interiors ---------------
+    t0 = time.perf_counter()
+    epart_g, _ = fem.mesh_partition(mesh.cells, mesh.points, ndom,
+                                    mesh.cell_neighbors, use_native=True)
+    part_g = fem.set_subdomains(mesh.cells, epart_g, maps, ndom)
+    plan_g = fem.prepare_dd_assembly(mesh.cells, mesh.points, epart_g, part_g,
+                                     maps, f_src, u_dir)
+    emit("dd_general_setup", nI=plan_g.nI, nG=plan_g.nG,
+         n_gamma=plan_g.n_gamma, elements_per_part=np.bincount(
+             epart_g, minlength=ndom).tolist(),
+         seconds=time.perf_counter() - t0)
+    dd_chain(card, "dd_general", plan_g, part_g, one_state(lam, psi), nvec,
+             spdim, maxit, warm=0, steps=2)
+    del plan_g, part_g
+    sync()
+    t0 = time.perf_counter()
+    fn, (s_e, W_e) = entry.entry()
+    s_e2, W_e2, it_e, cnt_e = fn(s_e, W_e)
+    sync()
+    check(1 < it_e < 60 and bool(torch.isfinite(W_e2).all()) and W_e2.is_cuda,
+          f"dd_entry: it {it_e}")
+    emit("dd_entry", it=int(it_e), proposals=int(cnt_e), n_gamma=W_e.shape[0],
+         ms_build_seed_step=1e3 * (time.perf_counter() - t0), card=card)
+    del plan, part, states, Wb
+    torch.cuda.empty_cache()
+
+    # ---- dd_full: the 500 x 500 grid, 8 x 8 tiles ------------------------------
+    t0 = time.perf_counter()
+    maps = fem.get_dirichlet_inds(mesh250.points, mesh250.point_markers)
+    _, part, plan = dd_stencil.prepare_dd_stencil_assembly(
+        mesh250, maps, f_src, u_dir, DD_FULL_NDOM)
+    lam, psi = sine_basis(mesh250.points)
+    emit("dd_full_setup", nnode=mesh250.nnode, ndom=DD_FULL_NDOM, hM=plan.hM,
+         wM=plan.wM, nI=plan.nI, nG=plan.nG, n_gamma=plan.n_gamma,
+         a_ig_mb=plan.ndom * plan.nI * plan.nG * 4 / 1e6,
+         seconds=time.perf_counter() - t0)
+    spdim_f = DD_FULL_SPDIM
+    torch.cuda.reset_peak_memory_stats()
+    state, W, (s_prev, W_prev), step = dd_chain(
+        card, "dd_full", plan, part, one_state(lam, psi), nvec, spdim_f,
+        maxit, warm=0, steps=3)
+    # the last step's Γ solution (the same solve again: a step repeats bit
+    # for bit), back-substituted and merged, against the monolithic system
+    coeff = torch.exp(state.g)
+    S, b_s, b_I = dd_stencil.condense_dd_stencil(plan, coeff)
+    Sd = schur.assemble_local_schurs(S)
+    x_g, it_g, _, W_again = _eigdef_impl(
+        schur.assembled_schur_operator(S, Sd=Sd),
+        schur.prepare_neumann_neumann_schur_precond(S, Sd=Sd), b_s,
+        torch.zeros_like(b_s), W_prev, nvec, spdim_f, maxit,
+        chains.effective_rtol(torch.float32), True, True)
+    check(torch.equal(W_again, W), "dd_full: the step's solve did not repeat")
+    u_I = schur.get_subdomain_solutions(S, x_g, b_I)
+    u = schur.merge_subdomain_solutions(part, maps, mesh250.points, u_dir,
+                                        x_g, u_I)
+    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    St, b = fem.make_stencil_operator(plan.splan, coeff)
+    dinv = 1.0 / St.diagonal()
+    # a float32 solution cannot have a float64 residual below its own
+    # float32 floor u32·‖|A||u|‖/‖b‖ (rounding u alone costs that much), and
+    # the DD solution (direct interior solves, the interface at 1e-5) must
+    # come within twice that floor: a wrong back-substitution or merge in a
+    # few tiles gives a residual of order 1. The plain float32 Jacobi-PCG of
+    # the same monolithic system at the chain's tolerance is printed beside
+    # it (its recurrence residual parts from the true one long before 1e-5)
+    ref = pcg(St, b, M=lambda v: dinv * v, maxit=CHAIN_MAXIT,
+              rtol=chains.effective_rtol(torch.float32))
+    tr, tr_ref = true_relres(St, b, u), true_relres(St, b, ref.x)
+    floor = f32_floor(St, b, u)
+    check(tr <= 2 * floor, f"dd_full: true residual of the merged DD "
+                           f"solution {tr} / its float32 floor {floor}")
+    emit("dd_full_solution", it=int(it_g), true_relres=tr, f32_floor=floor,
+         limit="2 x the float32 floor of the merged solution",
+         true_relres_plain_float32_pcg=tr_ref,
+         rel_diff_to_plain_solve=rel(u, ref.x), it_plain_pcg=int(ref.it),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+
 def run(card):
     from krylov_spdes_tpu_torch import fem
     from krylov_spdes_tpu_torch.ops import cuda_build
@@ -851,6 +1324,7 @@ def run(card):
     # ---- 4. kernels C and D: whole solves ------------------------------------
     tol2 = torch.tensor(RTOL, device="cuda") ** 2 * torch.sum(bp * bp)
     minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    us_it = {}
     for key, name, kern, plain, args, per_it, line in (
             ("C", "whole_cg", fc.whole_cg, fc.whole_cg_plain, (bp,), 27, 473),
             ("D", "whole_pcg", fc.whole_pcg, fc.whole_pcg_plain, (minv, bp),
@@ -876,8 +1350,9 @@ def run(card):
             bound_by=by,
             **timed(lambda: kern(ps, *args, MAXIT, tol2), 5, ["whole_cg_kernel"],
                     lambda: plain(ps, *args, MAXIT, tol2), 1))
+        us_it[key] = 1e3 * kernels[key]["ms"] / (itk - 1)
         emit(f"kernel_{key.lower()}", it=itk, it_plain=itp, x_rel_err=err_x,
-             us_per_iteration=1e3 * kernels[key]["ms"] / (itk - 1), card=card,
+             us_per_iteration=us_it[key], card=card,
              **{k: v for k, v in kernels[key].items() if k not in NAMING})
 
     # fixed cost of one whole-solve iteration (two grid syncs, four block
@@ -979,9 +1454,15 @@ def run(card):
 
     for key, n_launch in launches.items():
         kernels[key]["launches"] = n_launch
+    run_kernel_h(card, St, b_full, ref["cg"], realizations, kernels,
+                 us_it["C"])
+    del realizations, solves, ref
     run_chain_slice(card, mesh, plan, kernels)
+    del plan, ps, St, A, asm
+    torch.cuda.empty_cache()
+    run_dd_slice(card, mesh)
 
-    # ---- 11. kernel list -------------------------------------------------------
+    # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():
         check(k["launches"] > 0,
               f"kernel {key} was not launched on its main path")
@@ -991,7 +1472,7 @@ def run(card):
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kernels[key][k] for k in order}
-                                  for key in "ABCDEFG"]}), flush=True)
+                                  for key in "ABCDEFGH"]}), flush=True)
 
 
 def main() -> int:

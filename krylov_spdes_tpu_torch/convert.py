@@ -18,6 +18,9 @@ import torch
 
 from .config import resolve
 from .fem.bc import DirichletMaps
+from .fem.dd import DDAssemblyPlan, DDPartition
+from .fem.dd_stencil import DDStencilPlan
+from .fem.schur import SchurOperator, SchurOperatorBT
 from .fem.stencil_assembly import StencilAssemblyPlan
 from .ops.fused_cg import PaddedStencil, build_padded_stencil
 from .ops.sparse import SparseOp
@@ -80,6 +83,70 @@ def dirichlet_maps(free_g2l, dir_g2l, free_l2g, dir_l2g,
     return DirichletMaps(np.asarray(free_g2l), np.asarray(dir_g2l),
                          np.asarray(free_l2g), np.asarray(dir_l2g),
                          np.asarray(is_dirichlet))
+
+
+def dd_partition(**fields) -> DDPartition:
+    """Host-side numpy index tables, as in both packages:
+    `dd_partition(**numpy_fields(part_j))`."""
+    names = {f.name for f in dataclasses.fields(DDPartition)}
+    return DDPartition(**{k: (np.asarray(v) if isinstance(v, np.ndarray)
+                              else int(v))
+                          for k, v in fields.items() if k in names})
+
+
+_DD_INDEX = {"cells", "eflat", "tgt_dom", "tgt_loc", "bI_slot", "bI_elem",
+             "bG_slot", "bG_elem", "sizes_I", "sizes_G", "h_arr", "w_arr",
+             "gg_tgt", "gg_ceidx", "gamma_idx", "ig_src", "ig_tgt", "g2g",
+             "gammad_to_gamma"}
+
+
+def _dd_fields(cls, fields, device, dtype):
+    """The constructor arguments of `cls` from a dict of numpy fields:
+    index tables as int64, values in `dtype`, static fields as they are,
+    derived fields (rebuilt by the port's `__post_init__`) dropped."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        if not f.init or f.name not in fields:
+            continue
+        v = fields[f.name]
+        if isinstance(v, np.ndarray):
+            out[f.name] = (_idx(v, device) if f.name in _DD_INDEX
+                           else _val(v, device, dtype))
+        elif isinstance(v, (tuple, list)):
+            out[f.name] = tuple(int(e) for e in v)
+        elif v is not None and not dataclasses.is_dataclass(v):
+            out[f.name] = int(v)
+    return out
+
+
+def dd_assembly_plan(device=None, dtype=None, **fields) -> DDAssemblyPlan:
+    """The general DD refill plan from the numpy fields of the JAX package's
+    (`dd_assembly_plan(**numpy_fields(plan_j))`); the (tgt_dom, tgt_loc)
+    pairs carry across as they are."""
+    device, dtype = resolve(device, dtype)
+    return DDAssemblyPlan(**_dd_fields(DDAssemblyPlan, fields, device, dtype))
+
+
+def dd_stencil_plan(device=None, dtype=None, **fields) -> DDStencilPlan:
+    """The stencil DD refill plan from the numpy fields of the JAX
+    package's; its `splan` field is that package's StencilAssemblyPlan (or
+    its numpy fields)."""
+    device, dtype = resolve(device, dtype)
+    splan = fields["splan"]
+    if not isinstance(splan, dict):
+        splan = numpy_fields(splan)
+    return DDStencilPlan(
+        splan=stencil_assembly_plan(**splan, device=device, dtype=dtype),
+        **_dd_fields(DDStencilPlan, fields, device, dtype))
+
+
+def schur_operator(device=None, dtype=None, **fields):
+    """The port's SchurOperator (dense interior factors, field `A_II_L`) or
+    SchurOperatorBT (block-tridiagonal factors, fields `Linv`, `G`) from the
+    numpy fields of the JAX package's."""
+    device, dtype = resolve(device, dtype)
+    cls = SchurOperatorBT if "Linv" in fields else SchurOperator
+    return cls(**_dd_fields(cls, fields, device, dtype))
 
 
 def padded_stencil(planes, dir_diag, H, W, sym=None, device=None,

@@ -24,7 +24,8 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("stencil_spmv", "fused_cg", "eigdef_stretch", "batched_proj")
+SOURCES = ("stencil_spmv", "fused_cg", "eigdef_stretch", "batched_proj",
+           "stencil_cg")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # --fmad=false: every product and sum rounds on its own, as the plain

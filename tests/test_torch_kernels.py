@@ -1,4 +1,4 @@
-"""PyTorch port, the CUDA kernels A-G against their plain PyTorch versions.
+"""PyTorch port, the CUDA kernels A-H against their plain PyTorch versions.
 
 The tests marked `cuda` need a CUDA device and nvcc; without a card they
 skip. This file imports no jax, so on a machine without jax it runs alone:
@@ -13,6 +13,7 @@ import torch
 import krylov_spdes_tpu_torch.fem as tfem
 from krylov_spdes_tpu_torch.ops import batched_proj as tbp
 from krylov_spdes_tpu_torch.ops import fused_cg as tfc
+from krylov_spdes_tpu_torch.ops import pallas_cg as tpc
 from krylov_spdes_tpu_torch.ops import stencil as tst
 from krylov_spdes_tpu_torch.ops import stencil_kernel as tsk
 from krylov_spdes_tpu_torch.ops import vmem_eigdef as tve
@@ -238,3 +239,68 @@ def test_kernels_f_g_match_plain(dtype):
         for a, c in zip(out[3:], ref[3:]):
             torch.testing.assert_close(a, c, rtol=rt, atol=0)
         assert torch.equal(tbp.gemv_rows(G, r), U)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_h_matches_plain(dtype):
+    """Kernel H against its plain version: over 1 and 8 iterations to
+    rounding (CG amplifies a last-bit difference from iteration to
+    iteration, and the two reduce in different orders), a whole solve to the
+    tolerance of the solve; a solve repeats bit for bit."""
+    _need_card()
+    for nn in (1369, 40000):
+        St, b = _system(nn, "cuda", dtype)
+        eps = torch.finfo(dtype).eps
+        for maxit, tol in ((2, 50 * eps), (9, 5e4 * eps)):
+            n0 = tpc.stencil_cg.launches
+            x, it, res = tpc.stencil_cg(St, b, maxit, 1e-12)
+            assert tpc.stencil_cg.launches == n0 + 1
+            xp, itp, resp = tpc.stencil_cg_plain(St, b, maxit, 1e-12)
+            assert int(it) == int(itp) == maxit
+            torch.testing.assert_close(x, xp, rtol=tol,
+                                       atol=tol * float(xp.abs().max()))
+            torch.testing.assert_close(res, resp, rtol=tol, atol=0)
+        rtol = 1e-5 if dtype == torch.float32 else 1e-8
+        x, it, res = tpc.stencil_cg(St, b, 3000, rtol)
+        xp, itp, resp = tpc.stencil_cg_plain(St, b, 3000, rtol)
+        assert abs(int(it) - int(itp)) <= max(2, 0.05 * int(itp))
+        assert float(res) <= rtol * float(torch.linalg.vector_norm(b))
+        torch.testing.assert_close(x, xp, rtol=0,
+                                   atol=1e3 * rtol * float(xp.abs().max()))
+        x2, it2, res2 = tpc.stencil_cg(St, b, 3000, rtol)
+        assert int(it2) == int(it) and torch.equal(x2, x)
+
+
+@pytest.mark.cuda
+def test_kernel_h_non_square_grid_and_maxit_one():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, W = 37, 53
+    planes = torch.randn(9, H, W, generator=g, device="cuda",
+                         dtype=torch.float64) * 0.1
+    # symmetric positive definite: mirror the bonds, dominate the diagonal
+    S = tst.StencilOp(planes=planes, dir_diag=torch.zeros_like(planes[0]),
+                      slot=torch.zeros(0, dtype=torch.int64, device="cuda"),
+                      H=H, W=W)
+    dense = torch.stack([S.matvec(e) for e in torch.eye(
+        H * W, device="cuda", dtype=torch.float64)], 1)
+    sym = 0.5 * (dense + dense.T) + 3.0 * torch.eye(H * W, device="cuda",
+                                                    dtype=torch.float64)
+    idx = torch.arange(H * W, device="cuda").reshape(H, W)
+    P = torch.zeros_like(planes)
+    for k, (di, dj) in enumerate(tsk.OFFSETS):
+        i0, i1, j0, j1 = max(0, -di), min(H, H - di), max(0, -dj), min(W, W - dj)
+        P[k, i0:i1, j0:j1] = sym[idx[i0:i1, j0:j1],
+                                 idx[i0 + di:i1 + di, j0 + dj:j1 + dj]]
+    S = tst.StencilOp(planes=P, dir_diag=torch.ones_like(P[0]) * 0.5,
+                      slot=S.slot, H=H, W=W)
+    b = torch.randn(H * W, generator=g, device="cuda", dtype=torch.float64)
+    x, it, res = tpc.stencil_cg(S, b, 500, 1e-10)
+    xp, itp, resp = tpc.stencil_cg_plain(S, b, 500, 1e-10)
+    assert abs(int(it) - int(itp)) <= 1 and int(it) < 500
+    torch.testing.assert_close(x, xp, rtol=1e-7, atol=1e-9)
+    x1, it1, res1 = tpc.stencil_cg(S, b, 1, 1e-10)
+    assert int(it1) == 1 and float(x1.abs().max()) == 0.0
+    torch.testing.assert_close(res1, torch.linalg.vector_norm(b), rtol=1e-12,
+                               atol=0)

@@ -78,6 +78,14 @@ def test_port_imports_no_jax():
     code = ("import sys, krylov_spdes_tpu_torch, krylov_spdes_tpu_torch.convert;"
             "import krylov_spdes_tpu_torch.solvers.refine;"
             "import krylov_spdes_tpu_torch.ops.fused_cg;"
+            "import krylov_spdes_tpu_torch.ops.pallas_cg;"
+            "import krylov_spdes_tpu_torch.fem.partition;"
+            "import krylov_spdes_tpu_torch.fem.native;"
+            "import krylov_spdes_tpu_torch.fem.dd;"
+            "import krylov_spdes_tpu_torch.fem.schur;"
+            "import krylov_spdes_tpu_torch.fem.dd_stencil;"
+            "import krylov_spdes_tpu_torch.dd_chains;"
+            "import krylov_spdes_tpu_torch.entry;"
             "assert 'jax' not in sys.modules, 'jax';"
             "bad = [m for m in sys.modules if m.startswith('krylov_spdes_tpu.')"
             " or m == 'krylov_spdes_tpu'];"
