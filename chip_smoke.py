@@ -31,8 +31,12 @@ Phases:
                 stencil_assemble -> refill_padded_stencil -> vmem_pcg ->
                 refined_pcg (A); each solve held against solvers.cg/pcg
   6. kernel_e   one stretch of eigDef-PCG on the operands of a real recycled
-                solve vs its plain version; small float64 solves through the
-                kernel vs solvers.eigdefpcg
+                solve vs its plain version, and again bit for bit; its
+                shared-memory plan (bytes a block, blocks, resident rows of
+                W) and barriers an iteration; kernel_e_nvec32: the same at
+                nvec 32, where W does not fit in shared memory;
+                kernel_e_float64: small float64 solves through the kernel vs
+                solvers.eigdefpcg
   7. kernel_f / kernel_g   the batched projections on the operands of a
                 batched chain step at B = 4 vs their plain versions (F also
                 vs torch.bmm)
@@ -59,7 +63,10 @@ Phases:
                 and the bench system's solve under the limits of phase 5
                 against solvers.cg, its `it` on b and on last-bit copies of
                 b within 5% of the range its own plain version spans on the
-                same right-hand sides; main_path_h, with H's count set to 0:
+                same right-hand sides, its shared-memory plan and barriers;
+                kernel_h_large: 1000 x 1000, where the planes do not fit in
+                shared memory, vs its plain version over 1 and 8 iterations,
+                bit for bit, µs an iteration; main_path_h, with H's count at 0:
                 stencil_cg on the bench system and on the realizations'
                 operators
  11. dd_protocol   seed_dd_chain (eigPCG + Neumann-Neumann on the interface
@@ -127,6 +134,12 @@ L2_EVICT_BYTES = 200e6   # four times the H100's 50 MB L2
 DD_NNODE, DD_NDOM, DD_NVEC, DD_MAXIT = 32000, 30, 30, 500
 DD_FULL_NDOM, DD_FULL_SPDIM = 64, 90
 H_ENVELOPE = 9     # last-bit copies of b behind kernel H's `it` envelope
+
+
+L2_BYTES = 50e6
+# barriers an iteration of the persistent kernels (csrc/persistent.cuh)
+E_BARRIERS = {"all_gather": 3, "neighbour_only": 1}
+H_BARRIERS = {"all_gather": 2, "neighbour_only": 0}
 
 
 class CheckFailed(Exception):
@@ -357,6 +370,41 @@ def perturbed(b, n, seed=1):
     return out
 
 
+def stretch_errors(k, pl, nsteps, nvec):
+    """Relative differences of a kernel-E stretch k from its plain version
+    pl, and equal cnt and live."""
+    check(int(k[7]) == int(pl[7]) == nsteps and bool(k[9]) == bool(pl[9]),
+          f"kernel E: cnt {int(k[7])} / plain {int(pl[7])} of {nsteps}")
+    cols = slice(nvec + 1, nvec + 1 + nsteps)
+    return {"x": rel(k[0], pl[0]), "r": rel(k[1], pl[1]),
+            "p": rel(k[2], pl[2]), "V": rel(k[3][cols], pl[3][cols]),
+            "alpha": maxrel(k[4][:nsteps], pl[4][:nsteps]),
+            "beta": maxrel(k[5][:nsteps], pl[5][:nsteps]),
+            "res2": maxrel(k[6][:nsteps], pl[6][:nsteps]),
+            "rTz": abs(float(k[8]) - float(pl[8])) / abs(float(pl[8]))}
+
+
+def stretch_abs_err(k, pl, nsteps, nvec):
+    cols = slice(nvec + 1, nvec + 1 + nsteps)
+    return max([float((k[i] - pl[i]).abs().max()) for i in range(3)]
+               + [float((k[3][cols] - pl[3][cols]).abs().max())])
+
+
+def stretch_streamed(ps, plan, nvec):
+    """What an iteration of kernel E reads from and writes to global memory
+    with the plan's residency: the K planes, WᵀA·m (G's second half), the
+    rows of W not in shared memory (read twice: U and the fixes), one column
+    of V and two halo rows of p; the band's vectors too where they live in
+    global memory (about a dozen passes). Bytes, and µs at the HBM rate."""
+    grids = ps.K + nvec + 2 * (nvec - plan.w_rows) + 1
+    if not plan.vectors:
+        grids += 12
+    size = ps.planes.element_size()
+    nbytes = (grids * ps.R + 2 * 2 * plan.grid) * ps.C * size
+    return {"grids": grids, "bytes": nbytes,
+            "us": 1e6 * nbytes / HBM_BYTES_PER_S}
+
+
 def projection_operands(plan, g, W, nvec):
     """The projection operands of a batched chain step on the fields g
     (B, n) from the bases W (B, n, nvec), after its first CG update, formed
@@ -460,10 +508,13 @@ def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
         V[NVEC] = o["z"] / torch.sqrt(o["rTz"])
         return V
 
-    def one_stretch(fn, V, nsteps):
-        return fn(ps, minv, o["G"], o["A1"], o["B"], o["x"].clone(),
+    def one_stretch(fn, V, nsteps, o=o, nvec=NVEC):
+        """The kernel takes G and the coefficient matrices Ac, Bc; its JAX
+        twin stretch_plain takes G, A1 and B."""
+        m1, m2 = ("Ac", "Bc") if fn is ve.stretch else ("A1", "B")
+        return fn(ps, minv, o["G"], o[m1], o[m2], o["x"].clone(),
                   o["r"].clone(), o["p"].clone(), V, tol2, o["rTz"], o["rTr"],
-                  nsteps, NVEC)
+                  nsteps, nvec)
 
     Vk, Vp = new_V(), new_V()
     errs_e, abs_e = {}, 0.0
@@ -474,25 +525,25 @@ def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
         k, pl = one_stretch(ve.stretch, Vk, nsteps), one_stretch(
             ve.stretch_plain, Vp, nsteps)
         sync()
-        check(int(k[7]) == int(pl[7]) == nsteps and bool(k[9]) == bool(pl[9]),
-              f"kernel E: cnt {int(k[7])} / plain {int(pl[7])} of {nsteps}")
-        cols = slice(NVEC + 1, NVEC + 1 + nsteps)
-        e = {"x": rel(k[0], pl[0]), "r": rel(k[1], pl[1]),
-             "p": rel(k[2], pl[2]), "V": rel(k[3][cols], pl[3][cols]),
-             "alpha": maxrel(k[4][:nsteps], pl[4][:nsteps]),
-             "beta": maxrel(k[5][:nsteps], pl[5][:nsteps]),
-             "res2": maxrel(k[6][:nsteps], pl[6][:nsteps]),
-             "rTz": abs(float(k[8]) - float(pl[8])) / abs(float(pl[8]))}
+        e = stretch_errors(k, pl, nsteps, NVEC)
         errs_e[nsteps] = e
         if tol is not None:
             check(max(e.values()) <= tol,
                   f"kernel E vs plain over {nsteps} iterations: {e}")
-            abs_e = max(float((k[i] - pl[i]).abs().max()) for i in range(3))
-            abs_e = max(abs_e, float((k[3][cols] - pl[3][cols]).abs().max()))
-    # bytes: each operand once a launch; operations of the cnt iterations
-    flops_it = 35 + 4 * 2 * NVEC + 2 * NVEC
-    bnd, by = bound_ms((ps.K + 1 + 5 * NVEC + 3 + 3 + full) * RC * 4,
-                       flops_it * n * full)
+            abs_e = stretch_abs_err(k, pl, nsteps, NVEC)
+    # a stretch repeats bit for bit (fixed-order sums, no float atomics)
+    V2 = new_V()
+    k2 = one_stretch(ve.stretch, V2, full)
+    check(all(torch.equal(a, c) for a, c in zip(k2[:9], k[:9])),
+          "kernel E: a stretch does not repeat bit for bit")
+    del V2, k2
+    # bytes: each input once a launch (planes, minv, G, Ac, Bc, x, r, p) and
+    # each output once (x, r, p, the cnt new columns of V); operations of the
+    # cnt iterations: 35 a node for the apply and the vector updates, U 4·nvec,
+    # the two fixes from W 4·nvec, and c_r, c_p 6·nvec² once an iteration
+    flops_it = (35 + 8 * NVEC) * n + 6 * NVEC * NVEC
+    bnd, by = bound_ms((ps.K + 1 + 2 * NVEC + 3 + 3 + full) * RC * 4
+                       + 3 * NVEC * NVEC * 4, flops_it * full)
     kernels["E"] = dict(
         name="eigdef_stretch", route="cuda",
         source="krylov_spdes_tpu_torch/csrc/eigdef_stretch.cu",
@@ -501,21 +552,65 @@ def run_chain_slice(card, mesh, plan, kernels, dev="cuda"):
         **timed(lambda: one_stretch(ve.stretch, Vk, full), 10,
                 ["stretch_kernel"],
                 lambda: one_stretch(ve.stretch_plain, Vp, full), 2))
-    # what one iteration streams when G, A1 and B do not fit the L2
-    streamed = (ps.K + 5 * NVEC + 19) * RC * 4 / HBM_BYTES_PER_S
-    check(kernels["E"]["ms"] / full >= 1e3 * streamed,
-          f"kernel E: {1e3 * kernels['E']['ms'] / full} us an iteration is "
-          f"below the {1e6 * streamed} us its streamed bytes take: the bound "
-          "or the timing is wrong")
+    eplan = ve.plan_for(ps, bp, NVEC)
+    streamed = stretch_streamed(ps, eplan, NVEC)
+    us_it = 1e3 * kernels["E"]["ms"] / full
+    # what an iteration reads from and writes to global memory in this
+    # design, with the residency the plan reports: where it cannot stay in
+    # the 50 MB L2 it streams from HBM, and a time below that is wrong
+    if streamed["bytes"] > L2_BYTES:
+        check(us_it >= streamed["us"],
+              f"kernel E: {us_it} us an iteration is below the "
+              f"{streamed['us']} us its streamed bytes take")
     emit("kernel_e", iterations=full, rel_err=errs_e,
          tolerance={1: 1e-5, min(8, full): 2e-3},
-         max_abs_err_over=min(8, full),
-         us_per_iteration=1e3 * kernels["E"]["ms"] / full,
+         max_abs_err_over=min(8, full), repeats_bit_for_bit=True,
+         us_per_iteration=us_it,
+         us_per_iteration_events=1e3 * kernels["E"]["ms_per_call"] / full,
          plain_us_per_iteration=1e3 * kernels["E"]["plain_ms_per_call"] / full,
-         streamed_bound_us_per_iteration=1e6 * streamed,
-         operands_mb=5 * NVEC * RC * 4 / 1e6, seed_it=int(it_seed0), card=card,
+         global_bytes_per_iteration=streamed["bytes"],
+         streamed_bound_us_per_iteration=streamed["us"],
+         # the earlier grid-synchronised design streamed G, A1 and B
+         # (5·nvec grids) and a dozen vector passes an iteration
+         streamed_bound_us_per_iteration_5nvec_design=1e6 * (
+             ps.K + 5 * NVEC + 19) * RC * 4 / HBM_BYTES_PER_S,
+         operands_mb=2 * NVEC * RC * 4 / 1e6, plan=dataclasses.asdict(eplan),
+         barriers_per_iteration=E_BARRIERS, seed_it=int(it_seed0), card=card,
          **{k: v for k, v in kernels["E"].items() if k not in NAMING})
-    del Vk, Vp, o, Wp
+    del Vk, Vp, o
+
+    # ---- kernel E where W does not fit in shared memory: nvec 32 -------------
+    nv32 = 2 * NVEC
+    g32 = torch.Generator(device=dev).manual_seed(32)
+    free = (St1.dir_diag.reshape(-1, 1) == 0).to(f32)
+    W32 = torch.linalg.qr(torch.cat([W0, torch.randn(
+        n, nv32 - NVEC, generator=g32, device=dev, dtype=f32) * free], 1))[0]
+    o32 = ve.stretch_operands(ps, minv, bp, torch.stack(
+        [fc.pad_vec(ps, w) for w in W32.T.contiguous()]))
+    plan32 = ve.plan_for(ps, bp, nv32)
+    check(plan32.w_rows < nv32, f"kernel E nvec {nv32}: plan {plan32}")
+    spdim32 = 2 * nv32 + 1
+    full32 = spdim32 - 1 - nv32
+
+    def new_V32():
+        V = bp.new_zeros((spdim32, ps.R, ps.C))
+        V[:nv32] = o32["G"][:nv32]
+        return V
+    errs32 = {}
+    for nsteps, tol in ((1, 1e-5), (8, 2e-3)):
+        k = one_stretch(ve.stretch, new_V32(), nsteps, o32, nv32)
+        pl = one_stretch(ve.stretch_plain, new_V32(), nsteps, o32, nv32)
+        errs32[nsteps] = stretch_errors(k, pl, nsteps, nv32)
+        check(max(errs32[nsteps].values()) <= tol,
+              f"kernel E nvec {nv32} vs plain over {nsteps} iterations: "
+              f"{errs32[nsteps]}")
+    V32 = new_V32()
+    ms32 = cuda_ms(lambda: one_stretch(ve.stretch, V32, full32, o32, nv32), 5)
+    emit("kernel_e_nvec32", nvec=nv32, iterations=full32, rel_err=errs32,
+         tolerance={1: 1e-5, 8: 2e-3}, plan=dataclasses.asdict(plan32),
+         ms_events=ms32, us_per_iteration_events=1e3 * ms32 / full32,
+         streamed=stretch_streamed(ps, plan32, nv32), card=card)
+    del o32, V32, W32, Wp
 
     # small float64 solves through the kernel against solvers.eigdefpcg
     f64 = dict(device=dev, dtype=torch.float64)
@@ -842,6 +937,7 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
         **timed(lambda: pc.stencil_cg(St, b_full, MAXIT, RTOL), 5,
                 ["stencil_cg_kernel"],
                 lambda: pc.stencil_cg_plain(St, b_full, MAXIT, RTOL), 1))
+    hplan = pc.plan_for(b_full, St.H, St.W)
     emit("kernel_h", it=itk, it_solvers_cg=int(ref_cg.it),
          its_plain_version_last_bit_changes_of_b=its_plain,
          its_kernel_last_bit_changes_of_b=its_kernel, allowed=allowed,
@@ -849,9 +945,13 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
          tolerance={1: 1e-5, 8: 2e-3}, max_abs_err_over=8, x_rel_err=err_x,
          true_relres=tr, true_relres_reference=tr_ref,
          us_per_iteration=1e3 * kernels["H"]["ms"] / (itk - 1),
+         us_per_iteration_events=1e3 * kernels["H"]["ms_per_call"] / (itk - 1),
+         plan=dataclasses.asdict(hplan), barriers_per_iteration=H_BARRIERS,
          kernel_c_us_per_iteration=c_us_per_iteration, library="none",
          card=card, **{k: v for k, v in kernels["H"].items()
                        if k not in NAMING})
+
+    kernel_h_large(card)
 
     # the main path of H, with its count at 0
     pc.stencil_cg.launches = 0
@@ -876,6 +976,51 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
              it=it, it_solvers_cg=int(ref.it), x_rel_err=rel(x, ref.x),
              true_relres=tr, true_relres_reference=tr_ref, ms=ms,
              us_per_iteration=1e3 * ms / max(it - 1, 1), card=card)
+
+
+def kernel_h_large(card, nnode=1000000):
+    """Kernel H at 1000 x 1000, where a band's planes do not fit in shared
+    memory beside its vectors and are read from global memory: against its
+    plain version over 1 and 8 iterations (1e-5, 2e-3, as at 500 x 500), a
+    fixed-count solve twice bit for bit, and the time an iteration."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.ops import pallas_cg as pc
+    from krylov_spdes_tpu_torch.ops.stencil import build_stencil_op, to_full_vector
+    mesh = fem.get_mesh(nnode)
+    maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    asm = fem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps,
+                                        lambda x, y: -1.0 + 0.0 * x,
+                                        lambda x, y: 0.0 * x)
+    A, b = fem.do_isotropic_elliptic_assembly(asm, np.exp(
+        SIGMA * np.random.default_rng(0).normal(size=mesh.nnode)))
+    h = int(round(np.sqrt(mesh.nnode)))
+    St = build_stencil_op(A, maps, (h, h))
+    b = to_full_vector(maps, b, mesh.nnode)
+    del asm, A
+    plan = pc.plan_for(b, h, h)
+    check(not plan.planes, f"kernel_h_large: plan {plan}")
+    errs = {}
+    for its, tol in ((1, 1e-5), (8, 2e-3)):
+        xk, itk, resk = pc.stencil_cg(St, b, its + 1, 1e-30)
+        xp, itp, resp = pc.stencil_cg_plain(St, b, its + 1, 1e-30)
+        check(int(itk) == int(itp) == its + 1,
+              f"kernel_h_large: it {int(itk)} / plain {int(itp)}")
+        errs[its] = {"x": rel(xk, xp),
+                     "res": abs(float(resk) - float(resp)) / float(resp)}
+        check(max(errs[its].values()) <= tol,
+              f"kernel_h_large vs plain over {its} iterations: {errs[its]}")
+    few, many = 11, 211
+    x1, it1, _ = pc.stencil_cg(St, b, many, 0.0)
+    x2, it2, _ = pc.stencil_cg(St, b, many, 0.0)
+    check(int(it1) == int(it2) == many and torch.equal(x1, x2),
+          "kernel_h_large: a solve does not repeat bit for bit")
+    t_few = cuda_ms(lambda: pc.stencil_cg(St, b, few, 0.0), 3)
+    t_many = cuda_ms(lambda: pc.stencil_cg(St, b, many, 0.0), 3)
+    emit("kernel_h_large", H=h, W=h, rel_err=errs, tolerance={1: 1e-5, 8: 2e-3},
+         repeats_bit_for_bit=True, plan=dataclasses.asdict(plan),
+         barriers_per_iteration=H_BARRIERS,
+         us_per_iteration_events=1e3 * (t_many - t_few) / (many - few),
+         card=card)
 
 
 def clone_state(s):

@@ -5,203 +5,398 @@
 //    krylov_spdes_tpu/ops/vmem_eigdef.py::_stretch_kernel.
 //    Up to nsteps iterations in one persistent cooperative launch, each:
 //      ap = A·p, α = rᵀz / pᵀap, x += α·p, r −= α·ap,
-//      U = G·r (2·nvec grid sums), r −= Σ_{k<nvec} U_k·A1_k   (reorth),
+//      U = G·r (2·nvec grid sums),
+//      c_r = Acᵀ·U[:nvec], c_p = Bcᵀ·U              (2·nvec² flops a block)
+//      r −= Σ_j c_r[j]·W_j                          (reorth, defcg.jl:407)
 //      z = minv ⊙ r, β = rᵀz_new / rᵀz,
-//      p = β·p + z − Σ_{k<2nvec} U_k·B_k                      (deflation),
+//      p = β·p + z − Σ_j c_p[j]·W_j                 (deflation)
 //      V[ivec0 + i + 1] = z / √(rᵀz_new), and α, β, ‖r‖² to device memory.
+//    W = G[:nvec] is the deflation basis; Ac = M1 and Bc = [−M1·Kmᵀ·M2; M2]
+//    are the coefficient matrices of ops/vmem_eigdef.py::stretch_operands,
+//    so Σ_j c_r[j]·W_j = Σ_k U_k·A1_k and Σ_j c_p[j]·W_j = Σ_k U_k·B_k with
+//    the JAX package's A1 = Ac·W and B = Bc·W: the same values in exact
+//    arithmetic, another rounding. The kernel reads neither A1 nor B.
 //    The loop runs while i < nsteps and ‖r‖² > tol², ‖r‖² starting at
 //    res2_prev. x, r, p are updated in place; of V only the appended
 //    columns are written.
 //
-//    What bounds it: bytes. Every iteration reads G, A1 and B once
-//    (5·nvec grids) beside the K planes and a dozen vector passes; at
-//    250k nodes, nvec = 16, float32 that is about 107 MB an iteration, more
-//    than the 50 MB L2, so the operands stream from HBM: about 32 µs an
-//    iteration at 3.35 TB/s. With about two nodes a thread the loads have
-//    to be in flight together to come near that rate: the rows of G are
-//    taken kRows at a time with kRows accumulators a thread, and the row
-//    loops over A1 and B are unrolled by kRows (the sums keep their order).
-//    On top come four grid-wide barriers an iteration (after the partials
-//    of pᵀap, of U, of rᵀr and rᵀz, and after p is written): the direction
-//    needs 2·nvec rows of B a node and cannot be recomputed at the 9
-//    neighbours as kernels B-D recompute z + β·p, so p is stored and a
-//    barrier separates its write from the next apply.
+//    Design (csrc/persistent.cuh): one persistent block per SM, each owning
+//    a band of node rows (3-4 at 500 × 500). A block keeps in shared memory
+//    Ac and Bc, its band of x, r, ap, accp and minv, the direction in a tile of the
+//    band's padded rows plus one halo row above and below, and as many of
+//    the nvec basis vectors' band rows as fit beside them (all 16 at 250k
+//    nodes, float32: 131 KB): W is then read twice an iteration from shared
+//    memory, once for U and once for both fixes, each W_j load feeding
+//    both sums. Rows that do not fit are read from G in the same loop. An
+//    iteration reads from global memory only the planes, WᵀA·m (G's second
+//    half), the rows of W that are not resident and two halo rows of p, and
+//    writes one column of V and the band's edge rows of p: 3·nvec grids of
+//    operands at most (G and W again), not the 5·nvec of G, A1 and B.
+//    Barriers an iteration: three all-gathers (pᵀap and then rᵀr with rᵀz
+//    packed with their epoch, one pass through the L2 each; the 2·nvec
+//    partials of U by flag + data, every block summing them itself in a
+//    fixed order), and after p is written a neighbour-only wait, since the
+//    next apply needs p only one row beyond the band. Loops over a band put
+//    its rows innermost and unrolled, so that a thread's global loads for
+//    several rows are in flight together.
 //
-//    Reductions have a fixed order and use no float atomics, so a stretch
-//    repeats bit for bit. The three scalars are summed by every block from
-//    the per-block partials, as in kernels C and D. The 2·nvec sums of U
-//    are summed once: each block adds one to a counter after writing its
-//    partials (with a fence), and the block that arrives last sums all
-//    partials in a fixed order and writes U before it joins the barrier;
-//    every block then reads the 2·nvec results.
+//    Reductions have a fixed order (a thread's nodes, the warp butterfly,
+//    the warps in order, then the blocks) and use no float atomics, so a
+//    stretch repeats bit for bit.
+//
+//    Residency: the wrapper (ops/vmem_eigdef.py, with
+//    ops/persistent.py::stretch_plan) sizes the vector area and the number
+//    of resident W rows from the device's shared memory; where the vectors
+//    do not fit either, they live in a per-block scratch area in global
+//    memory. There is no size limit and no other path.
 //
 // The library is built with --fmad=false so that every product and sum
 // rounds on its own, as the plain PyTorch version's elementwise ops do.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-
-namespace cgr = cooperative_groups;
+#include "persistent.cuh"
 
 namespace {
 
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxU = 64;  // 2·nvec at most
-constexpr int kRows = 8;   // rows of G, A1, B loaded together
+constexpr int kMaxU = 64;   // 2·nvec at most
+constexpr int kRows = 8;    // rows of G summed together in the U pass
+constexpr int kGuard = 4;   // zeros before and after the direction tile
+
+// Ac and Bc in shared memory, rounded up to a 16-byte multiple.
+__host__ __device__ inline long coef_elems(int nvec) {
+  return (3L * nvec * nvec + 3) / 4 * 4;
+}
+
+// Elements of T a block's vector area holds: x, r, ap, accp, minv over the
+// band of nrmax padded rows, and the direction tile of nrmax + 2 rows with
+// kGuard zeros before and after it.
+__host__ __device__ inline long vec_elems(int nrmax, int C) {
+  return 5L * nrmax * C + static_cast<long>(nrmax + 2) * C + 2 * kGuard;
+}
+
+// N consecutive values of T as one 16-byte access.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  using V = float4;
+  static constexpr int n = 4;
+};
+template <>
+struct Pack<double> {
+  using V = double2;
+  static constexpr int n = 2;
+};
+
+template <typename T>
+__device__ __forceinline__ void ld16(const T* p, T* v) {
+  const typename Pack<T>::V q = *reinterpret_cast<const typename Pack<T>::V*>(p);
+  if constexpr (Pack<T>::n == 4) {
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ typename Pack<T>::V pack(const T* v) {
+  typename Pack<T>::V q;
+  if constexpr (Pack<T>::n == 4) {
+    q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
+  } else {
+    q.x = v[0]; q.y = v[1];
+  }
+  return q;
+}
+
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const T* v) {
+  *reinterpret_cast<typename Pack<T>::V*>(p) = pack(v);
+}
+
+// The same with an evict-first (streaming) store, for V's columns, which
+// nothing in the stretch reads again: they leave G and the planes in the L2.
+template <typename T>
+__device__ __forceinline__ void st16_stream(T* p, const T* v) {
+  __stcs(reinterpret_cast<typename Pack<T>::V*>(p), pack(v));
+}
 
 template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPThreads, 1)
 stretch_kernel(const T* __restrict__ P, const T* __restrict__ minv,
-               const T* __restrict__ G, const T* __restrict__ A1,
-               const T* __restrict__ B, T* x, T* r, T* p, T* V, T* ap,
-               T* accp, T* part, T* U, unsigned int* counter,
-               const T* __restrict__ tol2p, const T* __restrict__ rTz0p,
-               const T* __restrict__ res2p, T* alphas, T* betas, T* res2s,
-               int* info, T* rTz_out, int H, int W, int C, int nvec,
-               int nsteps, int ivec0) {
-  cgr::grid_group grid = cgr::this_grid();
-  __shared__ T sh[kThreads];
-  __shared__ T shw[kWarps * kMaxU];
+               const T* __restrict__ G, const T* __restrict__ Ac,
+               const T* __restrict__ Bc, T* x, T* r, T* p, T* V, T* part,
+               unsigned int* sync, T* scratch, const T* __restrict__ tol2p,
+               const T* __restrict__ rTz0p, const T* __restrict__ res2p,
+               T* alphas, T* betas, T* res2s, int* info, T* rTz_out, int H,
+               int W, int C, int nvec, int nsteps, int ivec0, int nrmax,
+               int vres, int wres) {
+  constexpr int N = Pack<T>::n;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[2 * kPWarps];
+  __shared__ T shw[kPWarps * kMaxU];
   __shared__ T shU[kMaxU];
-  __shared__ bool is_last;
-  const long n = static_cast<long>(H) * W;
+  __shared__ T shc[kMaxU];      // c_r, then c_p
+  __shared__ T sums[2];
+  __shared__ unsigned int sh32[kMaxBlocks * 2 * sizeof(T) / 4];
+  int r0, nr;
+  band_of(blockIdx.x, gridDim.x, H, &r0, &nr);
   const long plane = static_cast<long>(H + 2 * kRow0) * C;
-  const long first = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long stride = static_cast<long>(gridDim.x) * kThreads;
-  const int NB = gridDim.x;
+  const long band = static_cast<long>(nrmax) * C;
+  const long qb = static_cast<long>(r0 + kRow0) * C;  // band's first node row
   const int nu = 2 * nvec;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  T* part_d = part;
-  T* part_r = part + NB;
-  T* part_z = part + 2 * NB;
-  T* part_u = part + 3 * NB;  // [k][block]
+  // a band is walked in items of N consecutive values of one padded row
+  // (pad columns included: they are zero in every operand and stay zero)
+  const int cv = C / N;
+  const int items = nr * cv;
+  // dynamic shared memory: Ac and Bc, the vector area (if resident), the
+  // resident rows of W
+  T* coef = reinterpret_cast<T*>(smem_raw);
+  T* sm = coef + coef_elems(nvec);
+  T* vec = vres ? sm : scratch + blockIdx.x * vec_elems(nrmax, C);
+  T* xs = vec;
+  T* rs = vec + band;
+  T* aps = vec + 2 * band;
+  T* accp = vec + 3 * band;
+  T* mv = vec + 4 * band;
+  T* tile = vec + 5 * band + kGuard;  // tile row 0: the padded row above
+  T* wsm = sm + (vres ? vec_elems(nrmax, C) : 0);
+  const T* Gb = G + qb;
+  // row k of G over the band, indexed like the band's vectors: resident
+  // rows of W in shared memory, the rest in G itself
+  auto row = [&](int k) -> const T* {
+    return k < wres ? wsm + k * band : Gb + k * plane;
+  };
+
+  for (int t = threadIdx.x; t < nvec * nvec; t += kPThreads) coef[t] = Ac[t];
+  for (int t = threadIdx.x; t < 2 * nvec * nvec; t += kPThreads)
+    coef[nvec * nvec + t] = Bc[t];
+  for (int t = threadIdx.x; t < items; t += kPThreads) {
+    const int i = t / cv;
+    const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+    T v[N];
+    ld16(x + qb + l, v);
+    st16(xs + l, v);
+    ld16(r + qb + l, v);
+    st16(rs + l, v);
+    ld16(minv + qb + l, v);
+    st16(mv + l, v);
+#pragma unroll
+    for (int u = 0; u < N; ++u) v[u] = T(0);
+    st16(aps + l, v);  // the apply writes nodes only: ap's pads stay zero
+    for (int k = 0; k < wres; ++k) {
+      ld16(Gb + k * plane + l, v);
+      st16(wsm + k * band + l, v);
+    }
+  }
+  // the direction: the band's padded rows and the rows above and below,
+  // pad columns included, and the zeros at either end
+  for (long t = threadIdx.x; t < static_cast<long>(nr + 2) * C; t += kPThreads)
+    tile[t] = p[qb - C + t];
+  if (threadIdx.x < kGuard) {
+    tile[-1 - static_cast<int>(threadIdx.x)] = T(0);
+    tile[static_cast<long>(nrmax + 2) * C + threadIdx.x] = T(0);
+  }
+
+  // pᵀap and (rᵀr, rᵀz) go through packed all-gathers, the 2·nvec sums of
+  // U through flag + data
+  Barrier<T> bar(sync, part, nu);
   const T tol2 = *tol2p;
   T rTz = *rTz0p;
   T res2 = *res2p;
-  int i = 0;
+  int it = 0;
 
-  while (i < nsteps && res2 > tol2) {
-    // 1. ap = A·p, partial pᵀap
-    T ld = T(0);
-    for (long t = first; t < n; t += stride) {
-      const long q = node_index(t, W, C);
-      const T v0 = p[q];
-      const T y = apply_vals<T, K>(P, plane, q, C, v0, p[q + 1], p[q - 1],
-                                   p[q + C], p[q - C], p[q + C + 1],
-                                   p[q - C - 1], p[q + C - 1], p[q - C + 1]);
-      ap[q] = y;
-      ld += v0 * y;
+  while (it < nsteps && res2 > tol2) {
+    // 1. ap = A·p, partial pᵀap (the halo rows as the neighbours left them)
+    if (it > 0) {
+      for (int j = threadIdx.x; j < W; j += kPThreads) {
+        tile[j] = __ldcg(p + qb - C + j);
+        tile[(nr + 1) * static_cast<long>(C) + j] = __ldcg(p + qb + nr * static_cast<long>(C) + j);
+      }
     }
-    T s = block_sum(ld, sh);
-    if (threadIdx.x == 0) part_d[blockIdx.x] = s;
-    grid.sync();
-    const T alpha = rTz / sum_partials(part_d, NB, sh);
+    __syncthreads();
+    // (a node a thread, neighbouring threads on neighbouring nodes for the
+    // planes' loads; the band's rows innermost and unrolled, so that a
+    // thread's loads for several rows are in flight together)
+    T ld = T(0);
+    for (int j = threadIdx.x; j < W; j += kPThreads) {
+#pragma unroll 4
+      for (int i = 0; i < nr; ++i) {
+        const long l = i * static_cast<long>(C) + j;
+        const T* tp = tile + C + l;
+        const T v0 = tp[0];
+        const T y = apply_vals<T, K>(P, plane, qb + l, C, v0, tp[1], tp[-1],
+                                     tp[C], tp[-C], tp[C + 1], tp[-C - 1],
+                                     tp[C - 1], tp[-C + 1]);
+        aps[l] = y;
+        ld += v0 * y;
+      }
+    }
+    T v1[1] = {ld};
+    block_totals(v1, red);
+    bar.all_values(v1, sums, sh32, false);
+    const T alpha = rTz / sums[0];
 
     // 2. x += α·p, r −= α·ap, then the block's partials of U = G·r
-    for (long t = first; t < n; t += stride) {
-      const long q = node_index(t, W, C);
-      x[q] = x[q] + alpha * p[q];
-      r[q] = r[q] - alpha * ap[q];
+    for (int t = threadIdx.x; t < items; t += kPThreads) {
+      const int i = t / cv;
+      const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+      T xv[N], pv[N], rv[N], av[N];
+      ld16(xs + l, xv);
+      ld16(tile + C + l, pv);
+      ld16(rs + l, rv);
+      ld16(aps + l, av);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        xv[u] = xv[u] + alpha * pv[u];
+        rv[u] = rv[u] - alpha * av[u];
+      }
+      st16(xs + l, xv);
+      st16(rs + l, rv);
     }
-    // kRows rows of G at a time, so that a node's loads are in flight
-    // together; each row's sum keeps its order (this thread's nodes, then
-    // the warp, then the warps in order)
+    __syncthreads();
+    // kRows rows of G at a time, their loads in flight together; each row's
+    // sum keeps its order (a thread's values, the warp butterfly, the warps
+    // in order)
     for (int k0 = 0; k0 < nu; k0 += kRows) {
       T acc[kRows];
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) acc[j] = T(0);
-      for (long t = first; t < n; t += stride) {
-        const long q = node_index(t, W, C);
-        const T rq = r[q];   // this thread's own r, written just above
+      for (int kk = 0; kk < kRows; ++kk) acc[kk] = T(0);
+      for (int t = threadIdx.x; t < items; t += kPThreads) {
+        const int i = t / cv;
+        const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+        T rv[N];
+        ld16(rs + l, rv);
 #pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          if (k0 + j < nu) acc[j] += G[(k0 + j) * plane + q] * rq;
+        for (int kk = 0; kk < kRows; ++kk) {
+          if (k0 + kk < nu) {
+            T g[N];
+            ld16(row(k0 + kk) + l, g);
+#pragma unroll
+            for (int u = 0; u < N; ++u) acc[kk] += g[u] * rv[u];
+          }
         }
       }
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const T v = warp_sum(acc[j]);
-        if (lane == 0 && k0 + j < nu) shw[warp * kMaxU + k0 + j] = v;
+      for (int kk = 0; kk < kRows; ++kk) {
+        const T v = warp_sum(acc[kk]);
+        if (lane == 0 && k0 + kk < nu) shw[warp * kMaxU + k0 + kk] = v;
       }
     }
     __syncthreads();
     if (threadIdx.x < nu) {
       T v = shw[threadIdx.x];
-      for (int w = 1; w < kWarps; ++w) v += shw[w * kMaxU + threadIdx.x];
-      part_u[static_cast<long>(threadIdx.x) * NB + blockIdx.x] = v;
-      __threadfence();
+      for (int w = 1; w < kPWarps; ++w) v += shw[w * kMaxU + threadIdx.x];
+      bar.slot(threadIdx.x)[blockIdx.x] = v;
     }
+    bar.all();
+    bar.template warp_gather<kMaxU / kPWarps>(warp, kPWarps, nu, shU);
     __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      is_last = atomicAdd(counter, 1u) == static_cast<unsigned int>(NB - 1);
+    bar.next();
+    // c_r = Acᵀ·U[:nvec] and c_p = Bcᵀ·U: a warp a coefficient, its lanes
+    // over k in a fixed order, then the butterfly
+    for (int o = warp; o < nu; o += kPWarps) {
+      const bool is_r = o < nvec;
+      const int j = is_r ? o : o - nvec;
+      const T* M = is_r ? coef : coef + nvec * nvec;
+      const int nk = is_r ? nvec : nu;
+      T c = T(0);
+      for (int k = lane; k < nk; k += 32) c += M[k * nvec + j] * shU[k];
+      c = warp_sum(c);
+      if (lane == 0) shc[o] = c;
     }
-    __syncthreads();
-    if (is_last) {
-      // the last block to arrive sums every block's partials, once
-      __threadfence();
-      for (int k = warp; k < nu; k += kWarps) {
-        const volatile T* pk = part_u + static_cast<long>(k) * NB;
-        T v = T(0);
-        for (int j = lane; j < NB; j += 32) v += pk[j];
-        v = warp_sum(v);
-        if (lane == 0) U[k] = v;
-      }
-      if (threadIdx.x == 0) *counter = 0u;
-    }
-    grid.sync();
-    if (threadIdx.x < nu) shU[threadIdx.x] = U[threadIdx.x];
     __syncthreads();
 
-    // 3. reorth r −= Σ U_k·A1_k, the deflation sum Σ U_k·B_k, partial rᵀr, rᵀz
+    // 3. one pass over W: r −= Σ c_r[j]·W_j, accp = Σ c_p[j]·W_j; rᵀr, rᵀz
     T lr = T(0), lz = T(0);
-    for (long t = first; t < n; t += stride) {
-      const long q = node_index(t, W, C);
-      T ar = shU[0] * A1[q];
-#pragma unroll kRows
-      for (int k = 1; k < nvec; ++k) ar = ar + shU[k] * A1[k * plane + q];
-      T apk = shU[0] * B[q];
-#pragma unroll kRows
-      for (int k = 1; k < nu; ++k) apk = apk + shU[k] * B[k * plane + q];
-      const T rn = r[q] - ar;
-      r[q] = rn;
-      accp[q] = apk;
-      lr += rn * rn;
-      lz += rn * (minv[q] * rn);
+    for (int t = threadIdx.x; t < items; t += kPThreads) {
+      const int i = t / cv;
+      const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+      T w[N], ar[N], apk[N];
+      ld16(row(0) + l, w);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        ar[u] = shc[0] * w[u];
+        apk[u] = shc[nvec] * w[u];
+      }
+      for (int k = 1; k < nvec; ++k) {
+        ld16(row(k) + l, w);
+        const T cr = shc[k], cp = shc[nvec + k];
+#pragma unroll
+        for (int u = 0; u < N; ++u) {
+          ar[u] = ar[u] + cr * w[u];
+          apk[u] = apk[u] + cp * w[u];
+        }
+      }
+      T rv[N], mvv[N];
+      ld16(rs + l, rv);
+      ld16(mv + l, mvv);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        rv[u] = rv[u] - ar[u];
+        lr += rv[u] * rv[u];
+        lz += rv[u] * (mvv[u] * rv[u]);
+      }
+      st16(rs + l, rv);
+      st16(accp + l, apk);
     }
-    s = block_sum(lr, sh);
-    if (threadIdx.x == 0) part_r[blockIdx.x] = s;
-    s = block_sum(lz, sh);
-    if (threadIdx.x == 0) part_z[blockIdx.x] = s;
-    grid.sync();
-    const T rTr = sum_partials(part_r, NB, sh);
-    const T rTz_new = sum_partials(part_z, NB, sh);
+    T v2[2] = {lr, lz};
+    block_totals(v2, red);
+    bar.all_values(v2, sums, sh32, false);
+    const T rTr = sums[0];
+    const T rTz_new = sums[1];
     const T beta = rTz_new / rTz;
 
-    // 4. p = β·p + z − Σ U_k·B_k, and the new column of V
+    // 4. p = β·p + z − accp, the new column of V; the band's edge rows of p
+    //    to global memory for the neighbours' next apply
     const T vnorm = sqrt(rTz_new);
-    T* Vcol = V + static_cast<long>(ivec0 + i + 1) * plane;
-    for (long t = first; t < n; t += stride) {
-      const long q = node_index(t, W, C);
-      const T z = minv[q] * r[q];
-      p[q] = (beta * p[q] + z) - accp[q];
-      Vcol[q] = z / vnorm;
+    T* Vcol = V + static_cast<long>(ivec0 + it + 1) * plane + qb;
+    for (int t = threadIdx.x; t < items; t += kPThreads) {
+      const int i = t / cv;
+      const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+      T rv[N], mvv[N], pv[N], av[N], vz[N];
+      ld16(rs + l, rv);
+      ld16(mv + l, mvv);
+      ld16(tile + C + l, pv);
+      ld16(accp + l, av);
+#pragma unroll
+      for (int u = 0; u < N; ++u) {
+        const T z = mvv[u] * rv[u];
+        pv[u] = (beta * pv[u] + z) - av[u];
+        vz[u] = z / vnorm;
+      }
+      st16(tile + C + l, pv);
+      st16_stream(Vcol + l, vz);
+      if (i == 0 || i == nr - 1) st16(p + qb + l, pv);
     }
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      alphas[i] = alpha;
-      betas[i] = beta;
-      res2s[i] = rTr;
+      alphas[it] = alpha;
+      betas[it] = beta;
+      res2s[it] = rTr;
     }
     rTz = rTz_new;
     res2 = rTr;
-    ++i;
-    grid.sync();
+    ++it;
+    bar.neighbours();
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < items; t += kPThreads) {
+    const int i = t / cv;
+    const long l = i * static_cast<long>(C) + (t - i * cv) * N;
+    T v[N];
+    ld16(xs + l, v);
+    st16(x + qb + l, v);
+    ld16(rs + l, v);
+    st16(r + qb + l, v);
+    ld16(tile + C + l, v);
+    st16(p + qb + l, v);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    info[0] = i;
+    info[0] = it;
     info[1] = res2 > tol2 ? 1 : 0;
     *rTz_out = rTz;
   }
@@ -219,47 +414,68 @@ const void* pick_stretch(int dtype, int K) {
 
 extern "C" {
 
-// Grid of the stretch kernel: every block resident at once (occupancy × SM
-// count), and no more blocks than it takes to give each thread a node.
-// Returns the block count, or minus a cudaError_t.
-int eigdef_stretch_grid(int dtype, int K, int H, int W) {
+// The device's limits for the stretch: out[0] = SM count, out[1] = the most
+// dynamic shared memory a block of the kernel can ask for (the opt-in
+// maximum less the kernel's static shared memory). Returns a cudaError_t.
+int eigdef_stretch_limits(int dtype, int K, int* out) {
   const void* fn = pick_stretch(dtype, K);
-  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, optin = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long need = (static_cast<long>(H) * W + kThreads - 1) / kThreads;
-  const long resident = static_cast<long>(per_sm) * sms;
-  return static_cast<int>(need < resident ? need : resident);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) out[1] = optin - static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(err);
 }
 
-// E. dtype: 0 = float32, 1 = float64. G, B: (2·nvec, R, C); A1: (nvec, R, C);
-// V: (spdim, R, C) with ivec0 + nsteps < spdim. ap, accp: (R, C) scratch;
-// part: (2·nvec + 3)·grid values; U: 2·nvec values; counter: one zeroed
-// unsigned int; alphas, betas, res2: preset by the caller; info: two ints
-// (iterations run, ‖r‖² still above tol²). grid from eigdef_stretch_grid.
-// Returns cudaGetLastError() after the launch.
+// E. dtype: 0 = float32, 1 = float64. G: (2·nvec, R, C); Ac: (nvec, nvec);
+// Bc: (2·nvec, nvec); V: (spdim, R, C) with ivec0 + nsteps < spdim.
+// part: 4·nvec·grid values; sync: sync_words(grid) zeroed 32-bit words;
+// scratch:
+// grid × vec_elems values when vres = 0; alphas, betas, res2: preset by the
+// caller; info: two ints (iterations run, ‖r‖² still above tol²). grid,
+// nrmax = ⌈H / grid⌉, vres, wres and smem come from
+// ops/persistent.py::stretch_plan; smem must be the bytes that layout needs.
+// Returns a cudaError_t: cudaErrorCooperativeLaunchTooLarge if the grid is
+// not resident at once.
 int eigdef_stretch(int dtype, int K, const void* P, const void* minv,
-                   const void* G, const void* A1, const void* B, void* x,
-                   void* r, void* p, void* V, void* ap, void* accp, void* part,
-                   void* U, void* counter, const void* tol2, const void* rTz,
+                   const void* G, const void* Ac, const void* Bc, void* x,
+                   void* r, void* p, void* V, void* part, void* sync,
+                   void* scratch, const void* tol2, const void* rTz,
                    const void* res2_prev, void* alphas, void* betas,
                    void* res2, void* info, void* rTz_out, int H, int W, int C,
-                   int nvec, int nsteps, int ivec0, int grid, void* stream) {
+                   int nvec, int nsteps, int ivec0, int grid, int nrmax,
+                   int vres, int wres, int smem, void* stream) {
   const void* fn = pick_stretch(dtype, K);
-  if (fn == nullptr || grid < 1 || nvec < 1 || 2 * nvec > kMaxU) {
+  const long esize = dtype == 0 ? 4 : 8;
+  const long need = esize * (coef_elems(nvec) + (vres ? vec_elems(nrmax, C) : 0)
+                             + static_cast<long>(wres) * nrmax * C);
+  if (fn == nullptr || grid < 1 || grid > H || grid > kMaxBlocks || nvec < 1
+      || 2 * nvec > kMaxU
+      || nrmax != (H + grid - 1) / grid || wres < 0 || wres > nvec || C % 4 != 0
+      || smem != need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  void* args[] = {&P, &minv, &G, &A1, &B, &x, &r, &p, &V, &ap, &accp, &part,
-                  &U, &counter, &tol2, &rTz, &res2_prev, &alphas, &betas,
-                  &res2, &info, &rTz_out, &H, &W, &C, &nvec, &nsteps, &ivec0};
-  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0,
-                                                static_cast<cudaStream_t>(stream));
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long>(per_sm) * sms < grid) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
+  void* args[] = {&P, &minv, &G, &Ac, &Bc, &x, &r, &p, &V, &part, &sync,
+                  &scratch, &tol2, &rTz, &res2_prev, &alphas, &betas, &res2,
+                  &info, &rTz_out, &H, &W, &C, &nvec, &nsteps, &ivec0,
+                  &nrmax, &vres, &wres};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPThreads), args,
+                                    static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,138 +8,219 @@
 //    rtol are kernel arguments. The apply is
 //      y = (P0 + dir_diag)·v + Σ_{k=1..8} P_k·shift_k(v),
 //    dir_diag added here and not by the host, a neighbour beyond the grid
-//    read as zero. That is what sets it apart from kernels C and D
-//    (csrc/fused_cg.cu), whose host pads every grid with zero rows and
-//    columns and folds dir_diag into plane 0: here a column j ± 1 that
-//    leaves the row would land on the neighbouring row's end, so every
-//    neighbour read is masked by its (i, j) bounds.
-//    x0 = 0, r = p = b, tol² = rtol²·bᵀb; the loop runs while it < maxit and
-//    rᵀr > tol² with it starting at 1 (pallas_cg.py:59-77); it (int32) and
-//    √(rᵀr) are written to device memory, with no read-back inside the loop.
+//    read as zero. x0 = 0, r = p = b, tol² = rtol²·bᵀb; the loop runs while
+//    it < maxit and rᵀr > tol² with it starting at 1 (pallas_cg.py:59-77);
+//    it (int32) and √(rᵀr) are written to device memory.
 //
-//    The direction is recomputed, not ringed. The TPU kernel keeps p in a
-//    zero-ringed (H+2, W+2) scratch and writes p = r + β·p at the end of an
-//    iteration; a grid of thread blocks would need a third grid-wide barrier
-//    between that write and the next apply. Here, as in kernels B-D, the
-//    apply forms pn = r + β·p at the node and at its eight neighbours from r
-//    and the previous p (cache hits: the working set stays in the L2) and
-//    writes the node's own pn to the other of two p buffers, which swap
-//    roles every iteration. The values are the TPU kernel's bit for bit
-//    (the same products and sums, --fmad=false); only the place where
-//    r + β·p is evaluated differs. In the first iteration β = 0 and p = 0,
-//    so pn = b.
+//    Design (csrc/persistent.cuh): one persistent block per SM, each owning
+//    a band of 3-4 node rows at 500 × 500. A block keeps its band in shared
+//    memory: P0 + dir_diag, x, r and Ap (band rows), the eight other planes
+//    (loaded once), and the direction in a zero-ringed (rows + 2) × (W + 2)
+//    tile, the TPU kernel's own ringed scratch, so the apply reads its nine
+//    neighbours with no masks. An iteration:
+//      1. pn = r + β·p on the band (in place in the tile) and on its two
+//         halo rows (from the neighbours' published rows of r and p), then
+//         Ap and the block's partial of pnᵀAp; all-gather barrier → α.
+//      2. x += α·pn, r −= α·Ap, the block's partial of rᵀr; the band's
+//         first and last rows of r and pn to the global halo slots;
+//         all-gather barrier → rᵀr, β, the stop test.
+//    Two barriers an iteration is the floor of this recurrence. A halo slot
+//    is written only after barrier 1 and read only before the next barrier
+//    1, so one slot a row suffices (the slots are the rows of rg and pg,
+//    (H, W) buffers of which only band edges are used).
+//    The values are the TPU kernel's step by step: the same products and
+//    sums in the same order (--fmad=false); the reductions have another
+//    fixed order (a thread's nodes, the warp butterfly, the warps in order,
+//    then the blocks), so a solve repeats bit for bit.
 //
-//    One persistent cooperative launch, two grid-wide barriers an iteration:
-//      1. pn, Ap = A·pn, block partial of pnᵀAp; barrier; every block sums
-//         the partials → d, α = rᵀr / d.
-//      2. x += α·pn, r −= α·Ap, block partial of rᵀr; barrier; every block
-//         sums the partials → rᵀr, β, the stop test.
-//    Every block sums the same partials in the same fixed order (block tree,
-//    no float atomics), so all blocks hold the same α, β and stop decision
-//    without a broadcast, and a solve repeats bit for bit.
+//    Residency: where the band's vectors or the eight planes do not fit in
+//    shared memory beside each other (1000 × 1000 and up), the same code
+//    reads them from global memory: the planes straight from the input, the
+//    vectors from a per-block scratch area. The wrapper
+//    (ops/pallas_cg.py, ops/persistent.py::stencil_cg_plan) decides it from
+//    the device's shared memory; there is no size limit and no other path.
 //
-//    What bounds it: latency, not bytes. The working set at 500 × 500
-//    float32 (9 planes, dir_diag, b, x, r, two p, Ap: 16 grids, 16 MB) stays
-//    in the 50 MB L2, and an iteration is two barriers and two re-reductions
-//    of the block partials. W = 500 is not a multiple of 32, so rows start
-//    at unaligned addresses and a warp's loads straddle two rows: that
-//    costs coalescing, not correctness, and is left as it is.
+//    What bounds it: latency. With the operator in shared memory an
+//    iteration's work is ~2000 nodes a block from shared memory; what is
+//    left is the two barriers. Both are packed all-gathers: a block's
+//    partial travels with its epoch in one 64-bit release store, and every
+//    block's acquire loads of all blocks' words are the wait and the data in
+//    one pass through the L2 (1.56 µs a barrier at 132 blocks on an H100,
+//    against 4.26 µs for flag, fence and data:
+//    krylov_spdes_tpu_torch/bench/barrier_bench.cu). The halo loads of
+//    step 1 are issued before the band's update, which hides their latency.
 //
 // The library is built with --fmad=false so that every product and sum
 // rounds on its own, as the plain PyTorch version's elementwise ops do.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "common.cuh"
-
-namespace cgr = cooperative_groups;
+#include "persistent.cuh"
 
 namespace {
 
-// r + β·p at node (i, j), zero beyond the grid.
-template <typename T>
-__device__ __forceinline__ T dir_at(const T* r, const T* p, T beta, int i,
-                                    int j, int H, int W) {
-  if (i < 0 || i >= H || j < 0 || j >= W) return T(0);
-  const long q = static_cast<long>(i) * W + j;
-  return r[q] + beta * p[q];
+// Elements of T a block's vector area holds: P0 + dir_diag, x, r, Ap over
+// nrmax rows, and the ringed direction tile.
+__host__ __device__ inline long vec_elems(int nrmax, int W) {
+  return 4L * nrmax * W + static_cast<long>(nrmax + 2) * (W + 2);
+}
+
+__host__ __device__ inline long plane_elems(int nrmax, int W) {
+  return 8L * nrmax * W;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPThreads, 1)
 stencil_cg_kernel(const T* __restrict__ P, const T* __restrict__ dd,
-                  const T* __restrict__ b, T* x, T* r, T* pa, T* pb, T* ap,
-                  T* part, int* it_out, T* res_out, int H, int W, int maxit,
-                  T rtol2) {
-  cgr::grid_group grid = cgr::this_grid();
-  __shared__ T sh[kThreads];
+                  const T* __restrict__ b, T* __restrict__ x, T* rg, T* pg,
+                  unsigned int* sync, T* scratch, int* it_out,
+                  T* res_out, int H, int W, int nrmax, int vres, int pres,
+                  int maxit, T rtol2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T red[kPWarps];
+  __shared__ T sum[1];
+  __shared__ unsigned int sh32[kMaxBlocks * sizeof(T) / 4];
+  int r0, nr;
+  band_of(blockIdx.x, gridDim.x, H, &r0, &nr);
+  const int TW = W + 2;
   const long n = static_cast<long>(H) * W;
-  const long first = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long stride = static_cast<long>(gridDim.x) * kThreads;
-  const int G = gridDim.x;
-  T* part_d = part;
-  T* part_r = part + G;
-
-  T lr = T(0);
-  for (long q = first; q < n; q += stride) {
-    const T bv = b[q];
-    r[q] = bv;
-    x[q] = T(0);
-    pa[q] = T(0);
-    lr += bv * bv;
+  const long band = static_cast<long>(nrmax) * W;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  T* vec = vres ? sm : scratch + blockIdx.x * vec_elems(nrmax, W);
+  T* d0 = vec;
+  T* xs = vec + band;
+  T* rs = vec + 2 * band;
+  T* aps = vec + 3 * band;
+  T* tile = vec + 4 * band;
+  // planes 1..8 of the band: plane k at pl + (k − 1)·pstride, node (i, j)
+  // of the band at i·W + j, in shared memory or in the input itself
+  const T* pl;
+  long pstride;
+  if (pres) {
+    T* ps = sm + (vres ? vec_elems(nrmax, W) : 0);
+    for (int k = 0; k < 8; ++k)
+      for (int i = 0; i < nr; ++i)
+        for (int j = threadIdx.x; j < W; j += kPThreads)
+          ps[k * band + i * W + j] = P[(k + 1) * n + (r0 + i) * static_cast<long>(W) + j];
+    pl = ps;
+    pstride = band;
+  } else {
+    pl = P + n + static_cast<long>(r0) * W;
+    pstride = n;
   }
-  T s = block_sum(lr, sh);
-  if (threadIdx.x == 0) part_r[blockIdx.x] = s;
-  grid.sync();
-  T rTr = sum_partials(part_r, G, sh);
+  const T* P1 = pl;
+  const T* P2 = pl + pstride;
+  const T* P3 = pl + 2 * pstride;
+  const T* P4 = pl + 3 * pstride;
+  const T* P5 = pl + 4 * pstride;
+  const T* P6 = pl + 5 * pstride;
+  const T* P7 = pl + 6 * pstride;
+  const T* P8 = pl + 7 * pstride;
+
+  for (long t = threadIdx.x; t < static_cast<long>(nrmax + 2) * TW; t += kPThreads)
+    tile[t] = T(0);
+  T lr = T(0);
+  for (int i = 0; i < nr; ++i) {
+    for (int j = threadIdx.x; j < W; j += kPThreads) {
+      const long g = (r0 + i) * static_cast<long>(W) + j;
+      const long l = i * static_cast<long>(W) + j;
+      d0[l] = P[g] + dd[g];
+      const T bv = b[g];
+      rs[l] = bv;
+      xs[l] = T(0);
+      lr += bv * bv;
+      if (i == 0 || i == nr - 1) {  // halo slots: r = b, p = 0
+        rg[g] = bv;
+        pg[g] = T(0);
+      }
+    }
+  }
+  // every all-gather here is packed: one value a block
+  Barrier<T> bar(sync, nullptr, 0);
+  T v[1] = {lr};
+  block_totals(v, red);
+  bar.all_values(v, sum, sh32, true);  // and the halo slots r = b, p = 0
+  T rTr = sum[0];
   const T tol2 = rtol2 * rTr;
   T beta = T(0);
   int it = 1;
-  T* pold = pa;
-  T* pnew = pb;
+  const bool above = r0 > 0, below = r0 + nr < H;
   while (it < maxit && rTr > tol2) {
+    // 1. pn = r + β·p on the band and its halo rows (the halo loads issued
+    //    first, so that the band's update hides their latency), then Ap
+    //    and pnᵀAp
+    for (int j = threadIdx.x; j < W; j += kPThreads) {
+      T ra = T(0), pa = T(0), rb = T(0), pb = T(0);
+      if (above) {
+        const long g = (r0 - 1) * static_cast<long>(W) + j;
+        ra = __ldcg(rg + g);
+        pa = __ldcg(pg + g);
+      }
+      if (below) {
+        const long g = (r0 + nr) * static_cast<long>(W) + j;
+        rb = __ldcg(rg + g);
+        pb = __ldcg(pg + g);
+      }
+      for (int i = 0; i < nr; ++i) {
+        const long t = (i + 1) * static_cast<long>(TW) + j + 1;
+        tile[t] = rs[i * static_cast<long>(W) + j] + beta * tile[t];
+      }
+      if (above) tile[j + 1] = ra + beta * pa;
+      if (below) tile[(nr + 1) * static_cast<long>(TW) + j + 1] = rb + beta * pb;
+    }
+    __syncthreads();
     T ld = T(0);
-    for (long q = first; q < n; q += stride) {
-      const int i = static_cast<int>(q / W);
-      const int j = static_cast<int>(q - static_cast<long>(i) * W);
-      const T v0 = r[q] + beta * pold[q];
-      T y = (P[q] + dd[q]) * v0;
-      y = y + P[1 * n + q] * dir_at(r, pold, beta, i, j + 1, H, W);
-      y = y + P[2 * n + q] * dir_at(r, pold, beta, i, j - 1, H, W);
-      y = y + P[3 * n + q] * dir_at(r, pold, beta, i + 1, j, H, W);
-      y = y + P[4 * n + q] * dir_at(r, pold, beta, i - 1, j, H, W);
-      y = y + P[5 * n + q] * dir_at(r, pold, beta, i + 1, j + 1, H, W);
-      y = y + P[6 * n + q] * dir_at(r, pold, beta, i - 1, j - 1, H, W);
-      y = y + P[7 * n + q] * dir_at(r, pold, beta, i + 1, j - 1, H, W);
-      y = y + P[8 * n + q] * dir_at(r, pold, beta, i - 1, j + 1, H, W);
-      pnew[q] = v0;
-      ap[q] = y;
-      ld += v0 * y;
+    for (int i = 0; i < nr; ++i) {
+      for (int j = threadIdx.x; j < W; j += kPThreads) {
+        const long l = i * static_cast<long>(W) + j;
+        const long t = (i + 1) * static_cast<long>(TW) + j + 1;
+        const T v0 = tile[t];
+        T y = d0[l] * v0;
+        y = y + P1[l] * tile[t + 1];        // E  (0, +1)
+        y = y + P2[l] * tile[t - 1];        // W  (0, −1)
+        y = y + P3[l] * tile[t + TW];       // N  (+1, 0)
+        y = y + P4[l] * tile[t - TW];       // S  (−1, 0)
+        y = y + P5[l] * tile[t + TW + 1];   // NE (+1, +1)
+        y = y + P6[l] * tile[t - TW - 1];   // SW (−1, −1)
+        y = y + P7[l] * tile[t + TW - 1];   // SE (+1, −1)
+        y = y + P8[l] * tile[t - TW + 1];   // NW (−1, +1)
+        aps[l] = y;
+        ld += v0 * y;
+      }
     }
-    s = block_sum(ld, sh);
-    if (threadIdx.x == 0) part_d[blockIdx.x] = s;
-    grid.sync();
-    const T alpha = rTr / sum_partials(part_d, G, sh);
+    v[0] = ld;
+    block_totals(v, red);
+    bar.all_values(v, sum, sh32, false);
+    const T alpha = rTr / sum[0];
 
+    // 2. x += α·pn, r −= α·Ap, rᵀr; the band's edge rows to the halo slots
     lr = T(0);
-    for (long q = first; q < n; q += stride) {
-      x[q] = x[q] + alpha * pnew[q];
-      const T rn = r[q] - alpha * ap[q];
-      r[q] = rn;
-      lr += rn * rn;
+    for (int i = 0; i < nr; ++i) {
+      for (int j = threadIdx.x; j < W; j += kPThreads) {
+        const long l = i * static_cast<long>(W) + j;
+        const T pn = tile[(i + 1) * static_cast<long>(TW) + j + 1];
+        xs[l] = xs[l] + alpha * pn;
+        const T rn = rs[l] - alpha * aps[l];
+        rs[l] = rn;
+        lr += rn * rn;
+        if (i == 0 || i == nr - 1) {
+          const long g = (r0 + i) * static_cast<long>(W) + j;
+          rg[g] = rn;
+          pg[g] = pn;
+        }
+      }
     }
-    s = block_sum(lr, sh);
-    if (threadIdx.x == 0) part_r[blockIdx.x] = s;
-    grid.sync();
-    const T rTr_new = sum_partials(part_r, G, sh);
+    v[0] = lr;
+    block_totals(v, red);
+    bar.all_values(v, sum, sh32, true);  // and the halo slots just written
+    const T rTr_new = sum[0];
     beta = rTr_new / rTr;
     rTr = rTr_new;
     ++it;
-    T* tmp = pold;
-    pold = pnew;
-    pnew = tmp;
   }
+  for (int i = 0; i < nr; ++i)
+    for (int j = threadIdx.x; j < W; j += kPThreads)
+      x[(r0 + i) * static_cast<long>(W) + j] = xs[i * static_cast<long>(W) + j];
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     *it_out = it;
     *res_out = sqrt(rTr);
@@ -156,41 +237,60 @@ const void* pick(int dtype) {
 
 extern "C" {
 
-// Grid of the solve: every block resident at once (occupancy × SM count),
-// and no more blocks than it takes to give each thread a node. Returns the
-// block count, or minus a cudaError_t.
-int stencil_cg_grid(int dtype, int H, int W) {
+// The device's limits for the solve: out[0] = SM count, out[1] = the most
+// dynamic shared memory a block of the kernel can ask for (the opt-in
+// maximum less the kernel's static shared memory). Returns a cudaError_t.
+int stencil_cg_limits(int dtype, int* out) {
   const void* fn = pick(dtype);
-  if (fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, coop = 0, optin = 0;
+  cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, 0);
-  if (err != cudaSuccess) return -static_cast<int>(err);
-  if (per_sm < 1) return -static_cast<int>(cudaErrorLaunchOutOfResources);
-  const long need = (static_cast<long>(H) * W + kThreads - 1) / kThreads;
-  const long resident = static_cast<long>(per_sm) * sms;
-  return static_cast<int>(need < resident ? need : resident);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) out[1] = optin - static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(err);
 }
 
-// H. dtype: 0 = float32, 1 = float64. x, r, pa, pb, ap are (H, W) buffers
-// the caller allocates; part holds 2·grid values; it is one int32, res one
-// value. rtol2 = rtol², rounded to the working type. Returns
-// cudaGetLastError() after the launch.
+// H. dtype: 0 = float32, 1 = float64. x, rg, pg: (H, W) buffers the caller
+// allocates; sync: sync_words(grid) zeroed 32-bit words;
+// scratch: grid × vec_elems values when vres = 0; it: one int32, res one
+// value. grid, nrmax = ⌈H / grid⌉, vres, pres and smem come from
+// ops/persistent.py::stencil_cg_plan; smem must be the bytes that layout
+// needs. rtol2 = rtol², rounded to the working type. Returns a cudaError_t:
+// cudaErrorCooperativeLaunchTooLarge if the grid is not resident at once.
 int stencil_cg(int dtype, const void* P, const void* dd, const void* b,
-               void* x, void* r, void* pa, void* pb, void* ap, void* part,
-               void* it, void* res, int H, int W, int maxit, double rtol2,
-               int grid, void* stream) {
+               void* x, void* rg, void* pg, void* sync, void* scratch, void* it, void* res, int H, int W, int maxit,
+               double rtol2, int grid, int nrmax, int vres, int pres,
+               int smem, void* stream) {
   const void* fn = pick(dtype);
-  if (fn == nullptr || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long esize = dtype == 0 ? 4 : 8;
+  const long need = esize * ((vres ? vec_elems(nrmax, W) : 0)
+                             + (pres ? plane_elems(nrmax, W) : 0));
+  if (fn == nullptr || grid < 1 || grid > H || grid > kMaxBlocks
+      || nrmax != (H + grid - 1) / grid
+      || smem != need) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (static_cast<long>(per_sm) * sms < grid) {
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  }
   float rtol2f = static_cast<float>(rtol2);
   void* tol_arg = dtype == 0 ? static_cast<void*>(&rtol2f) : static_cast<void*>(&rtol2);
-  void* args[] = {&P, &dd, &b, &x, &r, &pa, &pb, &ap, &part, &it, &res,
-                  &H, &W, &maxit, tol_arg};
-  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), args, 0,
-                                                static_cast<cudaStream_t>(stream));
+  void* args[] = {&P, &dd, &b, &x, &rg, &pg, &sync, &scratch, &it,
+                  &res, &H, &W, &nrmax, &vres, &pres, &maxit, tol_arg};
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPThreads), args,
+                                    static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

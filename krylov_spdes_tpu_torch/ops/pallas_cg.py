@@ -2,8 +2,10 @@
 
 Port of `krylov_spdes_tpu/ops/pallas_cg.py` (`_cg_kernel`, called by
 `stencil_cg_pallas`). The CUDA kernel is `csrc/stencil_cg.cu`: one
-persistent cooperative launch, two grid-wide barriers an iteration,
-fixed-order reductions, `it` and the residual written on the device. Unlike
+persistent cooperative launch of one block per SM, each block holding a
+band of node rows in shared memory (`ops/persistent.py::stencil_cg_plan`),
+two all-gather barriers an iteration, fixed-order reductions, `it` and the
+residual written on the device. Unlike
 kernels C and D (ops/fused_cg.py) it takes the `StencilOp` as it is: nine
 (H, W) planes, `dir_diag` added inside the kernel, no padding by the host
 and no symmetric 5-plane form.
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .persistent import stencil_cg_plan, sync_words
 from .stencil import OFFSETS, StencilOp
 
 
@@ -59,12 +62,30 @@ def stencil_cg_plain(S: StencilOp, b: torch.Tensor, maxit: int, rtol: float):
 def _lib():
     lib = cuda_build.load("stencil_cg")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.stencil_cg_grid.argtypes = [ci] * 3
-    lib.stencil_cg.argtypes = ([ci] + [vp] * 11 + [ci] * 3
-                               + [ctypes.c_double, ci, vp])
-    lib.stencil_cg_grid.restype = ci
+    lib.stencil_cg_limits.argtypes = [ci, vp]
+    lib.stencil_cg.argtypes = ([ci] + [vp] * 10 + [ci] * 3
+                               + [ctypes.c_double] + [ci] * 5 + [vp])
+    lib.stencil_cg_limits.restype = ci
     lib.stencil_cg.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def limits(code: int, device: int) -> tuple[int, int]:
+    """(SM count, the most dynamic shared memory a block of kernel H can
+    ask for) on the current device."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    cuda_build.check(lib, lib.stencil_cg_limits(code, out), "stencil_cg_limits")
+    return out[0], out[1]
+
+
+def plan_for(b: torch.Tensor, H: int, W: int):
+    """Kernel H's launch plan for a solve of an (H, W) grid on b's card."""
+    code = cuda_build.dtype_code(b)
+    with torch.cuda.device(b.device):
+        sms, smem_max = limits(code, b.device.index or 0)
+    return stencil_cg_plan(H, W, b.element_size(), sms, smem_max)
 
 
 def stencil_cg(S: StencilOp, b: torch.Tensor, maxit: int, rtol: float):
@@ -82,18 +103,19 @@ def stencil_cg(S: StencilOp, b: torch.Tensor, maxit: int, rtol: float):
                          f"b {tuple(b.shape)}")
     lib = _lib()
     code = cuda_build.dtype_code(b)
-    grid = lib.stencil_cg_grid(code, H, W)
-    if grid < 0:
-        cuda_build.check(lib, -grid, "stencil_cg_grid")
-    x, r, pa, pb, ap = (b.new_empty((H, W)) for _ in range(5))
-    part = b.new_empty(2 * grid)
+    plan = plan_for(b, H, W)
+    x, rg, pg = (b.new_empty((H, W)) for _ in range(3))
+    sync = torch.zeros(sync_words(plan.grid), dtype=torch.int32,
+                       device=b.device)
+    scratch = b.new_empty(1 if plan.vectors else plan.grid * plan.scratch_elems)
     it = torch.empty((), dtype=torch.int32, device=b.device)
     res = b.new_empty(())
     c = cuda_build.ptr
-    err = lib.stencil_cg(code, c(S.planes), c(S.dir_diag), c(b), c(x), c(r),
-                         c(pa), c(pb), c(ap), c(part), c(it), c(res), H, W,
-                         int(maxit), float(rtol) * float(rtol), grid,
-                         cuda_build.stream(b))
+    err = lib.stencil_cg(code, c(S.planes), c(S.dir_diag), c(b), c(x), c(rg),
+                         c(pg), c(sync), c(scratch), c(it), c(res),
+                         H, W, int(maxit), float(rtol) * float(rtol),
+                         plan.grid, plan.nrmax, int(plan.vectors),
+                         int(plan.planes), plan.smem, cuda_build.stream(b))
     cuda_build.check(lib, err, "stencil_cg")
     stencil_cg.launches += 1
     return x.reshape(-1), it, res

@@ -15,6 +15,14 @@ precomputing combined operands (all (nvec|2nvec, R, C)):
     r_fix  = Σ_k U_k · A1_k            A1 = (WᵀW)⁻¹ᵀ Wᵀ rows      [reorth]
     p_fix  = Σ_k U_k · B_k             B  = [−M₁KᵀM₂ Wᵀ; M₂ Wᵀ]   [deflation]
 
+A1 and B are row combinations of W = G[:nvec]: A1 = Ac·W and B = Bc·W with
+the small coefficient matrices Ac = M₁ (nvec, nvec) and Bc = [−M₁KᵀM₂; M₂]
+(2nvec, nvec). Kernel E uses that form and reads neither A1 nor B:
+
+    c_r = Acᵀ U[:nvec],  c_p = Bcᵀ U,  r_fix = Σ_j c_r[j] W_j,  p_fix = Σ_j c_p[j] W_j
+
+which is the same in exact arithmetic and rounds differently.
+
 which is algebraically identical to the reference's
 r ← r − W(WᵀW)⁻¹Wᵀr (defcg.jl:407) and p ← βp + z − W(WᵀAW)⁻¹WᵀAz
 (defcg.jl:425-426) with z = m ⊙ r, using the same linearity identity as the
@@ -31,8 +39,12 @@ Layout: the port's `PaddedStencil` (ops/fused_cg.py), every vector an
 (R, C) grid with zero pads. There is no size limit and no size switch: at
 sizes where G, A1 and B outgrow the L2 the kernel streams them from HBM.
 
-`stretch` takes the plain version for CPU tensors and launches kernel E for
-CUDA tensors; `stretch.launches` counts the launches.
+`stretch_plain` is the JAX package's stretch (A1 and B); `stretch_coef_plain`
+is kernel E's arithmetic (Ac and Bc), its plain version. `stretch` takes
+`stretch_coef_plain` for CPU tensors and launches kernel E for CUDA tensors;
+`stretch.launches` counts the launches. The kernel is a persistent
+cooperative launch of one block per SM (`csrc/persistent.cuh`), whose
+shared-memory plan `plan_for` gives.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import torch
 from ..solvers.base import f32_exact
 from ..solvers.eig_common import thick_restart_basis
 from . import cuda_build
+from .persistent import stretch_plan, sync_words
 from .fused_cg import (ROW0, PaddedStencil, _apply_plain, _check_grid, _jacobi_minv,
                        _unblock_planes, pad_vec, unpad_vec)
 
@@ -89,9 +102,49 @@ def _stretch_step(ps, minv, G, A1, B, x, r, p, rTz):
     return x, r, p, z, alpha, beta, rTr, rTz_new
 
 
+def _stretch_coef_step(ps, minv, G, Ac, Bc, x, r, p, rTz):
+    """`_stretch_step` in kernel E's form: the fixes as combinations of the
+    basis rows W = G[:nvec] with c_r = Acᵀ·U[:nvec] and c_p = Bcᵀ·U, every
+    sum in the kernel's order."""
+    nvec = Ac.shape[0]
+    Wr = G[:nvec]
+    ap = _apply_xla(ps, p)
+    alpha = rTz / _gsum(p, ap)
+    x = x + alpha * p
+    r = r - alpha * ap
+    U = torch.sum(G * r, dim=(1, 2))                 # (2nvec,)
+    c_r, c_p = _combine(U[:nvec], Ac), _combine(U, Bc)
+    acc_p = _combine(c_p, Wr)
+    r = r - _combine(c_r, Wr)                        # defcg.jl:407 reorth
+    rTr = _gsum(r, r)
+    z = minv * r
+    rTz_new = _gsum(r, z)
+    beta = rTz_new / rTz
+    p = beta * p + z - acc_p                         # deflated direction
+    return x, r, p, z, alpha, beta, rTr, rTz_new
+
+
+def _run_stretch(step, x, r, p, V, tol2, rTz, res2_prev, nsteps, ivec0):
+    """The stretch loop around one iteration's `step(x, r, p, rTz)`."""
+    spdim = V.shape[0]
+    alphas = x.new_ones(spdim)
+    betas = x.new_zeros(spdim)
+    res2 = x.new_zeros(spdim)
+    i, cur = 0, res2_prev
+    while i < nsteps and bool(cur > tol2):
+        x, r, p, z, alpha, beta, rTr, rTz = step(x, r, p, rTz)
+        V[ivec0 + i + 1] = z / torch.sqrt(rTz)
+        alphas[i], betas[i], res2[i] = alpha, beta, rTr
+        cur = rTr
+        i += 1
+    cnt = torch.tensor(i, dtype=torch.int32, device=x.device)
+    return x, r, p, V, alphas, betas, res2, cnt, rTz, cur > tol2
+
+
 def stretch_plain(ps: PaddedStencil, minv, G, A1, B, x, r, p, V, tol2, rTz,
                   res2_prev, nsteps: int, ivec0: int):
-    """Plain PyTorch version of kernel E: up to `nsteps` advance iterations.
+    """The JAX package's stretch in plain PyTorch: up to `nsteps` advance
+    iterations with the combined operands A1 and B.
 
     minv, x, r, p: (R, C); G, B: (2nvec, R, C); A1: (nvec, R, C);
     V: (spdim, R, C), columns ivec0+1 … ivec0+cnt are appended in place and
@@ -101,75 +154,93 @@ def stretch_plain(ps: PaddedStencil, minv, G, A1, B, x, r, p, V, tol2, rTz,
     of iterations run; live (0-d bool) says whether ‖r‖² is still above
     tol². The loop runs while i < nsteps and ‖r‖² > tol², ‖r‖² starting at
     res2_prev."""
-    spdim = V.shape[0]
-    alphas = x.new_ones(spdim)
-    betas = x.new_zeros(spdim)
-    res2 = x.new_zeros(spdim)
-    i, cur = 0, res2_prev
-    while i < nsteps and bool(cur > tol2):
-        x, r, p, z, alpha, beta, rTr, rTz = _stretch_step(
-            ps, minv, G, A1, B, x, r, p, rTz)
-        V[ivec0 + i + 1] = z / torch.sqrt(rTz)
-        alphas[i], betas[i], res2[i] = alpha, beta, rTr
-        cur = rTr
-        i += 1
-    cnt = torch.tensor(i, dtype=torch.int32, device=x.device)
-    return x, r, p, V, alphas, betas, res2, cnt, rTz, cur > tol2
+    return _run_stretch(
+        lambda *v: _stretch_step(ps, minv, G, A1, B, *v), x, r, p, V, tol2,
+        rTz, res2_prev, nsteps, ivec0)
+
+
+def stretch_coef_plain(ps: PaddedStencil, minv, G, Ac, Bc, x, r, p, V, tol2,
+                       rTz, res2_prev, nsteps: int, ivec0: int):
+    """Plain PyTorch version of kernel E: `stretch_plain` with the fixes
+    formed from the coefficient matrices Ac (nvec, nvec) and Bc (2nvec,
+    nvec) and the basis rows G[:nvec], as the kernel forms them. The same
+    arguments and results otherwise."""
+    return _run_stretch(
+        lambda *v: _stretch_coef_step(ps, minv, G, Ac, Bc, *v), x, r, p, V,
+        tol2, rTz, res2_prev, nsteps, ivec0)
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = cuda_build.load("eigdef_stretch")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.eigdef_stretch_grid.argtypes = [ci] * 4
-    lib.eigdef_stretch.argtypes = [ci, ci] + [vp] * 22 + [ci] * 7 + [vp]
-    lib.eigdef_stretch_grid.restype = ci
+    lib.eigdef_stretch_limits.argtypes = [ci, ci, vp]
+    lib.eigdef_stretch.argtypes = [ci, ci] + [vp] * 20 + [ci] * 11 + [vp]
+    lib.eigdef_stretch_limits.restype = ci
     lib.eigdef_stretch.restype = ci
     return lib
 
 
-def stretch(ps: PaddedStencil, minv, G, A1, B, x, r, p, V, tol2, rTz,
+@functools.lru_cache(maxsize=None)
+def limits(code: int, K: int, device: int) -> tuple[int, int]:
+    """(SM count, the most dynamic shared memory a block of kernel E can
+    ask for) on the current device."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    cuda_build.check(lib, lib.eigdef_stretch_limits(code, K, out),
+                     "eigdef_stretch_limits")
+    return out[0], out[1]
+
+
+def plan_for(ps: PaddedStencil, x, nvec: int):
+    """Kernel E's launch plan for a stretch on ps with nvec basis vectors,
+    in x's dtype on x's card."""
+    code = cuda_build.dtype_code(x)
+    with torch.cuda.device(x.device):
+        sms, smem_max = limits(code, ps.K, x.device.index or 0)
+    return stretch_plan(ps.H, ps.C, nvec, x.element_size(), sms, smem_max)
+
+
+def stretch(ps: PaddedStencil, minv, G, Ac, Bc, x, r, p, V, tol2, rTz,
             res2_prev, nsteps: int, ivec0: int):
-    """Kernel E on CUDA tensors, `stretch_plain` on CPU tensors; the same
-    arguments and results. On the card x, r, p and V are updated in place
-    (and returned); cnt and live stay on the card, for one read-back by the
-    caller."""
+    """Kernel E on CUDA tensors, `stretch_coef_plain` on CPU tensors; the
+    same arguments and results. On the card x, r, p and V are updated in
+    place (and returned); cnt and live stay on the card, for one read-back
+    by the caller."""
     if x.device.type == "cpu":
-        return stretch_plain(ps, minv, G, A1, B, x, r, p, V, tol2, rTz,
-                             res2_prev, nsteps, ivec0)
-    cuda_build.require_cuda(ps.planes, minv, G, A1, B, x, r, p, V, tol2, rTz,
+        return stretch_coef_plain(ps, minv, G, Ac, Bc, x, r, p, V, tol2, rTz,
+                                  res2_prev, nsteps, ivec0)
+    cuda_build.require_cuda(ps.planes, minv, G, Ac, Bc, x, r, p, V, tol2, rTz,
                             res2_prev)
     _check_grid(ps, minv, x, r, p)
-    nvec, spdim = A1.shape[0], V.shape[0]
+    nvec, spdim = Ac.shape[0], V.shape[0]
     if nvec > MAX_NVEC:
         raise ValueError(f"kernel E takes nvec <= {MAX_NVEC}, got {nvec}")
-    for name, t, rows in (("G", G, 2 * nvec), ("A1", A1, nvec),
-                          ("B", B, 2 * nvec), ("V", V, spdim)):
-        if t.shape != (rows, ps.R, ps.C):
-            raise ValueError(f"{name}: expected ({rows}, {ps.R}, {ps.C}), "
-                             f"got {tuple(t.shape)}")
+    for name, t, shape in (("G", G, (2 * nvec, ps.R, ps.C)),
+                           ("Ac", Ac, (nvec, nvec)), ("Bc", Bc, (2 * nvec, nvec)),
+                           ("V", V, (spdim, ps.R, ps.C))):
+        if t.shape != shape:
+            raise ValueError(f"{name}: expected {shape}, got {tuple(t.shape)}")
     if not 0 <= nsteps <= spdim - 1 - ivec0:
         raise ValueError(f"nsteps {nsteps} leaves V (ivec0 {ivec0}, spdim "
                          f"{spdim})")
     lib = _lib()
     code = cuda_build.dtype_code(x)
-    grid = lib.eigdef_stretch_grid(code, ps.K, ps.H, ps.W)
-    if grid < 0:
-        cuda_build.check(lib, -grid, "eigdef_stretch_grid")
-    ap, accp = torch.zeros_like(x), torch.zeros_like(x)
-    part = x.new_empty((2 * nvec + 3) * grid)
-    U = x.new_empty(2 * nvec)
-    counter = torch.zeros((), dtype=torch.int32, device=x.device)
+    plan = plan_for(ps, x, nvec)
+    part = x.new_empty(2 * 2 * nvec * plan.grid)
+    sync = torch.zeros(sync_words(plan.grid), dtype=torch.int32,
+                       device=x.device)
+    scratch = x.new_empty(1 if plan.vectors else plan.grid * plan.scratch_elems)
     alphas, betas, res2 = x.new_ones(spdim), x.new_zeros(spdim), x.new_zeros(spdim)
     info = torch.zeros(2, dtype=torch.int32, device=x.device)
     rTz_out = x.new_empty(())
     c = cuda_build.ptr
     err = lib.eigdef_stretch(
-        code, ps.K, c(ps.planes), c(minv), c(G), c(A1), c(B), c(x), c(r),
-        c(p), c(V), c(ap), c(accp), c(part), c(U), c(counter), c(tol2),
-        c(rTz), c(res2_prev), c(alphas), c(betas), c(res2), c(info),
-        c(rTz_out), ps.H, ps.W, ps.C, nvec, nsteps, ivec0, grid,
-        cuda_build.stream(x))
+        code, ps.K, c(ps.planes), c(minv), c(G), c(Ac), c(Bc), c(x), c(r),
+        c(p), c(V), c(part), c(sync), c(scratch), c(tol2), c(rTz),
+        c(res2_prev), c(alphas), c(betas), c(res2), c(info), c(rTz_out),
+        ps.H, ps.W, ps.C, nvec, nsteps, ivec0, plan.grid, plan.nrmax,
+        int(plan.vectors), plan.w_rows, plan.smem, cuda_build.stream(x))
     cuda_build.check(lib, err, "eigdef_stretch")
     stretch.launches += 1
     return (x, r, p, V, alphas, betas, res2, info[0], rTz_out,
@@ -219,8 +290,10 @@ def stretch_operands(ps: PaddedStencil, minv, bp, Wp):
     stretches and the deflated start (defcg.jl:361-377).
 
     Wp: (nvec, R, C) padded deflation basis. Returns a dict with G, B
-    (2nvec, R, C), A1 (nvec, R, C), WtA (nvec, R·C), WtAW, and the start
-    x, r, p, z (R, C), rTz, rTr (0-d)."""
+    (2nvec, R, C), A1 (nvec, R, C), their coefficient matrices Ac (nvec,
+    nvec) and Bc (2nvec, nvec) with A1 = Ac·W and B = Bc·W (W = G[:nvec],
+    rows flattened), WtA (nvec, R·C), WtAW, and the start x, r, p, z (R, C),
+    rTz, rTr (0-d)."""
     nvec = Wp.shape[0]
     R, C = ps.R, ps.C
     Wf = Wp.reshape(nvec, R * C)
@@ -235,8 +308,10 @@ def stretch_operands(ps: PaddedStencil, minv, bp, Wp):
     M1 = torch.cholesky_solve(eye, cho_w)             # (WᵀW)⁻¹
     M2 = torch.cholesky_solve(eye, cho)               # (WᵀAW)⁻¹
     G = torch.cat([Wf, WtAM]).reshape(2 * nvec, R, C)
-    A1 = (M1 @ Wf).reshape(nvec, R, C)                # rows: reorth operand
-    B = torch.cat([-(M1 @ Km.T @ M2) @ Wf, M2 @ Wf]).reshape(2 * nvec, R, C)
+    Ac = M1.contiguous()
+    Bc = torch.cat([-(M1 @ Km.T @ M2), M2])
+    A1 = (Ac @ Wf).reshape(nvec, R, C)                # rows: reorth operand
+    B = (Bc @ Wf).reshape(2 * nvec, R, C)
 
     # deflated initial guess + first direction
     bf = bp.reshape(-1)
@@ -245,7 +320,7 @@ def stretch_operands(ps: PaddedStencil, minv, bp, Wp):
     z = minv * r
     mu = torch.cholesky_solve((WtA @ z.reshape(-1))[:, None], cho)[:, 0]
     p = z - (mu @ Wf).reshape(R, C)
-    return dict(G=G, A1=A1, B=B, WtA=WtA, WtAW=WtAW, x=x, r=r, p=p, z=z,
+    return dict(G=G, A1=A1, B=B, Ac=Ac, Bc=Bc, WtA=WtA, WtAW=WtAW, x=x, r=r, p=p, z=z,
                 rTz=_gsum(r, z), rTr=_gsum(r, r))
 
 
@@ -259,7 +334,8 @@ def _vmem_eigdef_impl(ps: PaddedStencil, minv, bp, Wp, nvec, spdim, maxit,
     R, C = ps.R, ps.C
     dev = bp.device
     ops = stretch_operands(ps, minv, bp, Wp)
-    G, A1, B, WtA, WtAW = (ops[k] for k in ("G", "A1", "B", "WtA", "WtAW"))
+    G, A1, B, Ac, Bc, WtA, WtAW = (
+        ops[k] for k in ("G", "A1", "B", "Ac", "Bc", "WtA", "WtAW"))
     x, r, p, z, rTz, rTr0 = (ops[k] for k in ("x", "r", "p", "z", "rTz",
                                               "rTr"))
     res_norm = bp.new_zeros(maxit)
@@ -281,7 +357,7 @@ def _vmem_eigdef_impl(ps: PaddedStencil, minv, bp, Wp, nvec, spdim, maxit,
         nsteps = min(spdim - 1 - ivec, maxit - it)
         if nsteps > 0:
             x, r, p, V, alphas, betas, res2, cnt, rTz, live = stretch(
-                ps, minv, G, A1, B, st["x"], st["r"], st["p"], st["V"], tol2,
+                ps, minv, G, Ac, Bc, st["x"], st["r"], st["p"], st["V"], tol2,
                 st["rTz"], st["res2"], nsteps, ivec)
             # the one read-back of the stretch
             cnt, live = torch.stack([cnt, live.to(torch.int32)]).tolist()

@@ -155,7 +155,8 @@ def _stretch_operands(ps, b, W):
     Wp = torch.stack([tfc.pad_vec(ps, w) for w in W.T.contiguous()])
     o = tve.stretch_operands(ps, minv, bp, Wp)
     return (minv, o["G"].contiguous(), o["A1"].contiguous(),
-            o["B"].contiguous(), o["x"], o["r"], o["p"], o["rTz"], o["rTr"])
+            o["B"].contiguous(), o["Ac"].contiguous(), o["Bc"].contiguous(),
+            o["x"], o["r"], o["p"], o["rTz"], o["rTr"])
 
 
 @pytest.mark.cuda
@@ -169,14 +170,15 @@ def test_kernel_e_matches_plain(sym, dtype):
     g = torch.Generator(device="cuda").manual_seed(1)
     W = torch.randn(St.n, nvec, generator=g, device="cuda", dtype=dtype) \
         * (St.dir_diag.reshape(-1, 1) == 0)
-    minv, G, A1, B, x, r, p, rTz, rTr = _stretch_operands(ps, b, W)
+    minv, G, A1, B, Ac, Bc, x, r, p, rTz, rTr = _stretch_operands(ps, b, W)
     tol2 = 1e-14 * rTr
     outs = []
-    for fn in (tve.stretch, tve.stretch_plain):
+    # the kernel (G, Ac, Bc) against the JAX twin (G, A1, B)
+    for fn, M1, M2 in ((tve.stretch, Ac, Bc), (tve.stretch_plain, A1, B)):
         V = torch.zeros(spdim, ps.R, ps.C, dtype=dtype, device="cuda")
         n0 = tve.stretch.launches
-        outs.append(fn(ps, minv, G, A1, B, x.clone(), r.clone(), p.clone(), V,
-                       tol2, rTz, rTr, 9, nvec))
+        outs.append(fn(ps, minv, G, M1, M2, x.clone(), r.clone(), p.clone(),
+                       V, tol2, rTz, rTr, 9, nvec))
         assert tve.stretch.launches == n0 + (fn is tve.stretch)
     k, pl = outs
     assert int(k[7]) == int(pl[7]) == 9 and bool(k[9]) == bool(pl[9])
@@ -192,9 +194,58 @@ def test_kernel_e_matches_plain(sym, dtype):
     assert not (V[:, :r0].any() or V[:, r0 + ps.H:].any() or V[:, :, ps.W:].any())
     # the sums have a fixed order: a second run repeats bit for bit
     V2 = torch.zeros_like(V)
-    again = tve.stretch(ps, minv, G, A1, B, x.clone(), r.clone(), p.clone(),
+    again = tve.stretch(ps, minv, G, Ac, Bc, x.clone(), r.clone(), p.clone(),
                         V2, tol2, rTz, rTr, 9, nvec)
     assert torch.equal(again[4], k[4]) and torch.equal(again[0], k[0])
+
+
+def _check_stretch_where_w_does_not_fit(nn, dtype, nvec):
+    """Kernel E against stretch_plain over 1 and 8 iterations (float32:
+    1e-5 and 2e-3, as chip_smoke holds it; float64: 1e-9) and a repeat bit
+    for bit, at a size where the band's basis rows (or its vectors) do not
+    all fit in shared memory."""
+    St, b = _system(nn, "cuda", dtype)
+    ps = tfc.build_padded_stencil(St)
+    plan = tve.plan_for(ps, b, nvec)
+    assert plan.w_rows < nvec, plan
+    g = torch.Generator(device="cuda").manual_seed(4)
+    W = torch.randn(St.n, nvec, generator=g, device="cuda", dtype=dtype) \
+        * (St.dir_diag.reshape(-1, 1) == 0)
+    minv, G, A1, B, Ac, Bc, x, r, p, rTz, rTr = _stretch_operands(ps, b, W)
+    tol2 = 1e-14 * rTr
+    f64 = dtype == torch.float64
+    for nsteps, tol in ((1, 1e-9 if f64 else 1e-5), (8, 1e-9 if f64 else 2e-3)):
+        outs = []
+        for fn, M1, M2 in ((tve.stretch, Ac, Bc), (tve.stretch, Ac, Bc),
+                           (tve.stretch_plain, A1, B)):
+            V = torch.zeros(nvec + 1 + nsteps, ps.R, ps.C, dtype=dtype,
+                            device="cuda")
+            outs.append(fn(ps, minv, G, M1, M2, x.clone(), r.clone(),
+                           p.clone(), V, tol2, rTz, rTr, nsteps, nvec))
+        k, k2, pl = outs
+        assert int(k[7]) == int(pl[7]) == nsteps
+        for a, c in zip(k[:7], pl[:7]):
+            err = float(torch.linalg.vector_norm(a - c)
+                        / torch.linalg.vector_norm(c))
+            assert err <= tol, (nsteps, err)
+        for a, c in zip(k[:7], k2[:7]):
+            assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_kernel_e_where_w_does_not_fit():
+    """nvec 32 at 250k nodes, float32: 19 of the 32 basis rows resident."""
+    _need_card()
+    _check_stretch_where_w_does_not_fit(250000, torch.float32, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_e_where_the_band_does_not_fit(dtype):
+    """1000 x 1000, nvec 4: in float32 no basis row fits beside the band's
+    vectors, in float64 the vectors themselves live in global memory."""
+    _need_card()
+    _check_stretch_where_w_does_not_fit(1000000, dtype, 4)
 
 
 @pytest.mark.cuda
@@ -270,6 +321,29 @@ def test_kernel_h_matches_plain(dtype):
                                    atol=1e3 * rtol * float(xp.abs().max()))
         x2, it2, res2 = tpc.stencil_cg(St, b, 3000, rtol)
         assert int(it2) == int(it) and torch.equal(x2, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_h_where_the_band_does_not_fit(dtype):
+    """1000 x 1000: the planes are read from global memory (float32), and
+    the vectors too (float64). Against the plain version over 1 and 8
+    iterations; a longer solve repeats bit for bit."""
+    _need_card()
+    St, b = _system(1000000, "cuda", dtype)
+    plan = tpc.plan_for(b, St.H, St.W)
+    assert not plan.planes and plan.vectors == (dtype == torch.float32)
+    eps = torch.finfo(dtype).eps
+    for maxit, tol in ((2, 50 * eps), (9, 5e4 * eps)):
+        x, it, res = tpc.stencil_cg(St, b, maxit, 1e-12)
+        xp, itp, resp = tpc.stencil_cg_plain(St, b, maxit, 1e-12)
+        assert int(it) == int(itp) == maxit
+        torch.testing.assert_close(x, xp, rtol=tol,
+                                   atol=tol * float(xp.abs().max()))
+        torch.testing.assert_close(res, resp, rtol=tol, atol=0)
+    x, it, _ = tpc.stencil_cg(St, b, 200, 1e-12)
+    x2, it2, _ = tpc.stencil_cg(St, b, 200, 1e-12)
+    assert int(it) == int(it2) == 200 and torch.equal(x, x2)
 
 
 @pytest.mark.cuda

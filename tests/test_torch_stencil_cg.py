@@ -18,6 +18,7 @@ from krylov_spdes_tpu.ops.stencil import build_stencil_op, to_full_vector
 
 from krylov_spdes_tpu_torch import convert
 from krylov_spdes_tpu_torch.ops import pallas_cg as tpc
+from krylov_spdes_tpu_torch.ops import persistent
 from krylov_spdes_tpu_torch.ops.stencil_kernel import stencil_spmv_plain
 from krylov_spdes_tpu_torch.solvers import cg
 
@@ -126,3 +127,61 @@ def test_wrapper_refuses_other_devices():
     _, _, St, b = _setup(400, 0.0, 5)
     with pytest.raises((ValueError, RuntimeError, NotImplementedError)):
         tpc.stencil_cg(St, b.to("meta"), 10, 1e-7)
+
+
+# H100 SXM: 132 SMs, 227 KB of opt-in shared memory a block, less a few KB
+# of the kernels' static shared memory
+SMS, SMEM_MAX = 132, 232448 - 9216
+
+
+@pytest.mark.parametrize("rows,cols", [(30, 30), (37, 53), (131, 131),
+                                       (132, 140), (133, 133), (500, 500),
+                                       (1000, 1000)])
+def test_band_partition_gives_every_row_once(rows, cols):
+    """The persistent kernels' bands (ops/persistent.py, the formula of
+    csrc/persistent.cuh::band_of): contiguous, in block order, every node
+    row exactly once, no block without a row, none longer than nrmax; the
+    shared memory asked for fits the device and covers the layout."""
+    grid = persistent.grid_blocks(rows, SMS)
+    assert grid == min(rows, SMS)
+    bands = persistent.band_rows(rows, grid)
+    assert len(bands) == grid
+    nxt = 0
+    for start, count in bands:
+        assert start == nxt and count >= 1
+        nxt = start + count
+    assert nxt == rows
+    counts = [c for _, c in bands]
+    assert max(counts) - min(counts) <= 1
+    for itemsize in (4, 8):
+        h = persistent.stencil_cg_plan(rows, cols, itemsize, SMS, SMEM_MAX)
+        assert h.grid == grid and h.nrmax == max(counts)
+        assert h.smem <= SMEM_MAX
+        vec = 4 * h.nrmax * cols + (h.nrmax + 2) * (cols + 2)
+        assert h.scratch_elems == vec
+        assert h.smem == itemsize * (vec * h.vectors
+                                     + 8 * h.nrmax * cols * h.planes)
+        assert h.vectors or not h.planes
+        C = -(-(cols + 1) // 32) * 32
+        for nvec in (4, 16, 32):
+            e = persistent.stretch_plan(rows, C, nvec, itemsize, SMS, SMEM_MAX)
+            assert e.grid == grid and e.nrmax == h.nrmax
+            assert 0 <= e.w_rows <= nvec and e.smem <= SMEM_MAX
+            vec = 5 * e.nrmax * C + (e.nrmax + 2) * C + 8
+            coef = -(-3 * nvec * nvec // 4) * 4
+            assert e.smem == itemsize * (coef + vec * e.vectors
+                                         + e.w_rows * e.nrmax * C)
+
+
+def test_residency_at_the_smoke_sizes():
+    """What lives in shared memory at chip_smoke's sizes: H's band whole at
+    500 x 500 float32, its planes in global memory at 1000 x 1000; E's 16
+    basis vectors all resident at 250k nodes float32, not all of 32."""
+    h = persistent.stencil_cg_plan(500, 500, 4, SMS, SMEM_MAX)
+    assert (h.grid, h.nrmax, h.vectors, h.planes) == (132, 4, True, True)
+    h = persistent.stencil_cg_plan(1000, 1000, 4, SMS, SMEM_MAX)
+    assert (h.nrmax, h.vectors, h.planes) == (8, True, False)
+    e = persistent.stretch_plan(500, 512, 16, 4, SMS, SMEM_MAX)
+    assert (e.grid, e.nrmax, e.vectors, e.w_rows) == (132, 4, True, 16)
+    e = persistent.stretch_plan(500, 512, 32, 4, SMS, SMEM_MAX)
+    assert e.vectors and 0 < e.w_rows < 32

@@ -56,19 +56,19 @@ def _random_basis(mesh, maps, nvec, seed):
 
 
 class _Counts:
-    """Counts the stretches (calls of the kernel's plain version, which the
-    wrapper takes on CPU tensors) and the thick restarts of the solves run
-    while it is installed."""
+    """Counts the stretches (calls of the kernel's plain version,
+    `stretch_coef_plain`, which the wrapper takes on CPU tensors) and the
+    thick restarts of the solves run while it is installed."""
 
     def __init__(self, monkeypatch):
         self.stretches = 0
         self._restarts0 = tve._restart_iteration.calls
-        plain = tve.stretch_plain
+        plain = tve.stretch_coef_plain
 
         def counted(*args):
             self.stretches += 1
             return plain(*args)
-        monkeypatch.setattr(tve, "stretch_plain", counted)
+        monkeypatch.setattr(tve, "stretch_coef_plain", counted)
 
     @property
     def restarts(self):
@@ -128,10 +128,12 @@ def test_vmem_eigdefpcg_restart_path_matches_jax(counts):
     assert counts.restarts > 10
 
 
-def test_one_stretch_matches_the_pallas_kernel():
-    """One stretch alone: the same operands into the JAX package's
-    `_stretch_call(interpret=True)` and into `stretch_plain`, carried
-    between the two padded layouts through each side's unpad/pad."""
+def _pallas_stretch_case(coef):
+    """One stretch's operands, random and well scaled (the kernel's
+    arithmetic, not a solve), run through the JAX package's
+    `_stretch_call(interpret=True)`. With `coef`, A1 = Ac·W and B = Bc·W
+    from random coefficient matrices and W = G[:nvec], the form kernel E
+    takes. Returns what the port's side needs and checks."""
     mesh, maps, Sj, bj, St, bt = _setup()
     nvec, spdim, nsteps = 4, 14, 7
     n = mesh.nnode
@@ -144,11 +146,14 @@ def test_one_stretch_matches_the_pallas_kernel():
     def rows(k):
         return rng.normal(size=(k, n)) * free[None, :]
 
-    # well-scaled random operands: the kernel's arithmetic, not a solve
     G, A1, B = rows(2 * nvec) * 1e-2, rows(nvec) * 1e-2, rows(2 * nvec) * 1e-2
     x, r, p = rows(1)[0], rows(1)[0], rows(1)[0]
     V = np.zeros((spdim, n))
     V[:nvec + 1] = rows(nvec + 1)
+    Ac = rng.normal(size=(nvec, nvec))
+    Bc = rng.normal(size=(2 * nvec, nvec))
+    if coef:
+        A1, B = Ac @ G[:nvec], Bc @ G[:nvec]
     minv_full = 1.0 / np.asarray(Sj.diagonal())
     rTz = float(r @ (minv_full * r))
     res2_prev = float(r @ r)
@@ -174,9 +179,13 @@ def test_one_stretch_matches_the_pallas_kernel():
     pg = lambda a: convert.padded_grids(pst, a, **CPU64)  # noqa: E731
     minv_t = tfc._jacobi_minv(pst, tfc._unblock_planes(pst), None)
     t = lambda v: torch.tensor(v, dtype=torch.float64)  # noqa: E731
-    out_t = tve.stretch(pst, minv_t, pg(G), pg(A1), pg(B), pg(x[None])[0],
-                        pg(r[None])[0], pg(p[None])[0], pg(V), t(tol2),
-                        t(rTz), t(res2_prev), nsteps, nvec)
+    tail = (pg(x[None])[0], pg(r[None])[0], pg(p[None])[0], pg(V), t(tol2),
+            t(rTz), t(res2_prev), nsteps, nvec)
+    ops = dict(G=pg(G), A1=pg(A1), B=pg(B), Ac=t(Ac), Bc=t(Bc))
+    return pst, minv_t, ops, tail, out_j, unj, V, nvec, spdim, nsteps
+
+
+def _check_against_pallas(out_t, pst, out_j, unj, V, nvec, spdim, nsteps):
     assert int(out_t[7]) == int(out_j[7]) == nsteps and bool(out_t[9])
     for k in range(3):                                   # x, r, p
         np.testing.assert_allclose(
@@ -195,6 +204,83 @@ def test_one_stretch_matches_the_pallas_kernel():
     assert np.all(out_t[4].numpy()[nsteps:] == 1)
     assert np.all(out_t[5].numpy()[nsteps:] == 0)
     assert np.all(out_t[6].numpy()[nsteps:] == 0)
+
+
+def test_one_stretch_matches_the_pallas_kernel():
+    """One stretch alone: the same operands into the JAX package's
+    `_stretch_call(interpret=True)` and into `stretch_plain`, carried
+    between the two padded layouts through each side's unpad/pad."""
+    pst, minv, o, tail, out_j, *rest = _pallas_stretch_case(coef=False)
+    out_t = tve.stretch_plain(pst, minv, o["G"], o["A1"], o["B"], *tail)
+    _check_against_pallas(out_t, pst, out_j, *rest)
+
+
+def test_coefficient_form_matches_the_pallas_kernel():
+    """Kernel E's arithmetic (`stretch`, which takes `stretch_coef_plain`
+    on CPU tensors: the fixes from Ac, Bc and W = G[:nvec]) against the
+    Pallas kernel given A1 = Ac·W and B = Bc·W: one stretch, rtol 1e-9."""
+    pst, minv, o, tail, out_j, *rest = _pallas_stretch_case(coef=True)
+    n0 = tve.stretch.launches
+    out_t = tve.stretch(pst, minv, o["G"], o["Ac"], o["Bc"], *tail)
+    assert tve.stretch.launches == n0          # a CPU tensor launches nothing
+    _check_against_pallas(out_t, pst, out_j, *rest)
+
+
+@pytest.mark.parametrize("nvec", [4, 8])
+def test_stretch_operands_coefficients_reproduce_a1_and_b(nvec):
+    """`stretch_operands`' Ac and Bc give A1 = Ac·W and B = Bc·W row for
+    row (W = G[:nvec]), to 1e-12 of the rows' scale."""
+    mesh, maps, Sj, bj, St, bt = _setup()
+    pst = tfc.build_padded_stencil(St)
+    W = convert.deflation_basis(_random_basis(mesh, maps, nvec, 4), **CPU64)
+    bp = tfc.pad_vec(pst, bt)
+    minv = tfc._jacobi_minv(pst, tfc._unblock_planes(pst), None)
+    Wp = torch.stack([tfc.pad_vec(pst, w) for w in W.T.contiguous()])
+    o = tve.stretch_operands(pst, minv, bp, Wp)
+    assert o["Ac"].shape == (nvec, nvec) and o["Bc"].shape == (2 * nvec, nvec)
+    Wf = o["G"][:nvec].reshape(nvec, -1)
+    for name, M in (("A1", o["Ac"]), ("B", o["Bc"])):
+        ref = o[name].reshape(M.shape[0], -1)
+        got = M @ Wf
+        scale = ref.abs().max(dim=1, keepdim=True).values
+        assert float(((got - ref).abs() / scale).max()) <= 1e-12, name
+
+
+def test_coefficient_form_matches_stretch_plain_over_a_full_stretch():
+    """`stretch_coef_plain` (kernel E's form) against `stretch_plain` (the
+    JAX twin, A1 and B) on the operands of a real recycled solve, over a
+    whole restart-free stretch: the same cnt and live, x, r, p, V's new
+    columns and the streamed scalars within 1e-9 (float64; the two forms
+    differ only in rounding, which CG amplifies over the stretch)."""
+    mesh, maps, Sj, bj, St, bt = _setup()
+    nvec, spdim = 4, 40
+    dinv = 1.0 / Sj.diagonal()
+    W0 = jnp.asarray(_random_basis(mesh, maps, nvec, 1))
+    W = convert.deflation_basis(np.asarray(j_eigdefpcg(
+        Sj, bj, W=W0, spdim=12, maxit=400, Mdiag=dinv).W), **CPU64)
+    pst = tfc.build_padded_stencil(St)
+    bp = tfc.pad_vec(pst, bt)
+    minv = tfc._jacobi_minv(pst, tfc._unblock_planes(pst), None)
+    Wp = torch.stack([tfc.pad_vec(pst, w) for w in W.T.contiguous()])
+    o = tve.stretch_operands(pst, minv, bp, Wp)
+    tol2 = (1e-12 * torch.linalg.vector_norm(bp)) ** 2
+    nsteps = spdim - 1 - nvec
+
+    def run(fn, a, b):
+        V = bp.new_zeros((spdim, pst.R, pst.C))
+        return fn(pst, minv, o["G"], o[a], o[b], o["x"].clone(),
+                  o["r"].clone(), o["p"].clone(), V, tol2, o["rTz"], o["rTr"],
+                  nsteps, nvec)
+    k = run(tve.stretch_coef_plain, "Ac", "Bc")
+    ref = run(tve.stretch_plain, "A1", "B")
+    assert int(k[7]) == int(ref[7]) == nsteps and bool(k[9]) == bool(ref[9])
+    cols = slice(nvec + 1, nvec + 1 + nsteps)
+    for a, c in ((k[0], ref[0]), (k[1], ref[1]), (k[2], ref[2]),
+                 (k[3][cols], ref[3][cols]), (k[4], ref[4]), (k[5], ref[5]),
+                 (k[6], ref[6])):
+        err = float(torch.linalg.vector_norm(a - c) / torch.linalg.vector_norm(c))
+        assert err <= 1e-9, err
+    np.testing.assert_allclose(float(k[8]), float(ref[8]), rtol=1e-9)
 
 
 def test_stretch_stops_on_the_tolerance_and_on_nsteps(counts):
