@@ -23,9 +23,13 @@ Phases:
                 (torch.sparse.mm on the same operator in CSR) and bound times
   3. kernel_b   one CG sweep vs its plain version
   4. kernel_c / kernel_d   whole-solve CG / Jacobi-PCG vs their plain versions
-     (before them, it_envelope: the plain solvers' float32 iteration counts
-     on b and on copies of b changed in their last bit; a kernel's count
-     must lie within 5% of the range they span)
+     over 1 and 8 iterations, a solve twice bit for bit, the shared-memory
+     plan (grid, nrmax, resident vectors and planes, bytes a block) and
+     barriers an iteration; the solve to the bench tolerance (before them,
+     it_envelope: the plain solvers' float32 iteration counts on b and on
+     copies of b changed in their last bit; a kernel's count must lie within
+     5% of the range they span); grid_sync: the fixed cost of an iteration
+     (two all-gathers) on 64 and on 132 blocks
   5. main_path  with every launch count set to 0: fused_pcg (B), vmem_cg (C),
                 vmem_pcg (D) on the bench system, then per realization
                 stencil_assemble -> refill_padded_stencil -> vmem_pcg ->
@@ -64,11 +68,11 @@ Phases:
                 against solvers.cg, its `it` on b and on last-bit copies of
                 b within 5% of the range its own plain version spans on the
                 same right-hand sides, its shared-memory plan and barriers;
-                kernel_h_large: 1000 x 1000, where the planes do not fit in
-                shared memory, vs its plain version over 1 and 8 iterations,
-                bit for bit, µs an iteration; main_path_h, with H's count at 0:
-                stencil_cg on the bench system and on the realizations'
-                operators
+                main_path_h, with H's count at 0: stencil_cg on the bench
+                system and on the realizations' operators; kernel_h_large,
+                kernel_c_large, kernel_d_large: 1000 x 1000, where the planes
+                do not fit in shared memory, vs their plain versions over 1
+                and 8 iterations, bit for bit, µs an iteration
  11. dd_protocol   seed_dd_chain (eigPCG + Neumann-Neumann on the interface
                 system), 4 warm-up and 5 timed make_dd_chain_step steps;
                 dd_repeat: one step twice from the same state and W, equal
@@ -137,9 +141,11 @@ H_ENVELOPE = 9     # last-bit copies of b behind kernel H's `it` envelope
 
 
 L2_BYTES = 50e6
-# barriers an iteration of the persistent kernels (csrc/persistent.cuh)
+# barriers an iteration of the persistent kernels (csrc/persistent.cuh): E,
+# and the whole-solve CG kernels C, D and H
 E_BARRIERS = {"all_gather": 3, "neighbour_only": 1}
-H_BARRIERS = {"all_gather": 2, "neighbour_only": 0}
+CG_BARRIERS = {"all_gather": 2, "neighbour_only": 0}
+OVER_1_AND_8 = {1: 1e-5, 8: 2e-3}
 
 
 class CheckFailed(Exception):
@@ -278,6 +284,26 @@ def timed(fn, reps, names, plain, plain_reps, library=None):
 def rel(a, b):
     return float(torch.linalg.vector_norm((a - b).double())
                  / torch.linalg.vector_norm(b.double()))
+
+
+def over_1_and_8(what, kern, plain):
+    """A whole-solve kernel, kern(maxit), against its plain version,
+    plain(maxit), over 1 and 8 iterations with a tolerance never met: CG
+    amplifies a last-bit difference from iteration to iteration (the two
+    reduce in different orders), so they are compared there and not at the
+    end of a solve. Returns the relative errors and the largest absolute
+    error of x after 8 iterations."""
+    errs = {}
+    for its, tol in OVER_1_AND_8.items():
+        xk, itk, resk = kern(its + 1)
+        xp, itp, resp = plain(its + 1)
+        check(int(itk) == int(itp) == its + 1,
+              f"{what}: it {int(itk)} / plain {int(itp)} of {its + 1}")
+        errs[its] = {"x": rel(xk, xp),
+                     "res": abs(float(resk) - float(resp)) / float(resp)}
+        check(max(errs[its].values()) <= tol,
+              f"{what} vs plain over {its} iterations: {errs[its]}")
+    return errs, float((xk - xp).abs().max())
 
 
 def csr_of(St):
@@ -882,20 +908,9 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
 
     n = St.n
     bnorm = float(torch.linalg.vector_norm(b_full))
-    # CG amplifies a last-bit difference from iteration to iteration (the
-    # kernel and the plain version reduce in different orders), so the kernel
-    # is held to its plain version over 1 and 8 iterations, as kernel E is
-    errs, abs_h = {}, 0.0
-    for its, tol in ((1, 1e-5), (8, 2e-3)):
-        xk, itk, resk = pc.stencil_cg(St, b_full, its + 1, 1e-30)
-        xp, itp, resp = pc.stencil_cg_plain(St, b_full, its + 1, 1e-30)
-        check(int(itk) == int(itp) == its + 1,
-              f"kernel H: it {int(itk)} / plain {int(itp)} of {its + 1}")
-        errs[its] = {"x": rel(xk, xp),
-                     "res": abs(float(resk) - float(resp)) / float(resp)}
-        check(max(errs[its].values()) <= tol,
-              f"kernel H vs plain over {its} iterations: {errs[its]}")
-        abs_h = float((xk - xp).abs().max())
+    errs, abs_h = over_1_and_8(
+        "kernel H", lambda m: pc.stencil_cg(St, b_full, m, 1e-30),
+        lambda m: pc.stencil_cg_plain(St, b_full, m, 1e-30))
     xk, itk, resk = pc.stencil_cg(St, b_full, MAXIT, RTOL)
     itk = int(itk)
     # the three limits of phase 5's solves, against solvers.cg
@@ -942,16 +957,14 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
          its_plain_version_last_bit_changes_of_b=its_plain,
          its_kernel_last_bit_changes_of_b=its_kernel, allowed=allowed,
          rel_err=errs,
-         tolerance={1: 1e-5, 8: 2e-3}, max_abs_err_over=8, x_rel_err=err_x,
+         tolerance=OVER_1_AND_8, max_abs_err_over=8, x_rel_err=err_x,
          true_relres=tr, true_relres_reference=tr_ref,
          us_per_iteration=1e3 * kernels["H"]["ms"] / (itk - 1),
          us_per_iteration_events=1e3 * kernels["H"]["ms_per_call"] / (itk - 1),
-         plan=dataclasses.asdict(hplan), barriers_per_iteration=H_BARRIERS,
+         plan=dataclasses.asdict(hplan), barriers_per_iteration=CG_BARRIERS,
          kernel_c_us_per_iteration=c_us_per_iteration, library="none",
          card=card, **{k: v for k, v in kernels["H"].items()
                        if k not in NAMING})
-
-    kernel_h_large(card)
 
     # the main path of H, with its count at 0
     pc.stencil_cg.launches = 0
@@ -978,13 +991,10 @@ def run_kernel_h(card, St, b_full, ref_cg, realizations, kernels,
              us_per_iteration=1e3 * ms / max(it - 1, 1), card=card)
 
 
-def kernel_h_large(card, nnode=1000000):
-    """Kernel H at 1000 x 1000, where a band's planes do not fit in shared
-    memory beside its vectors and are read from global memory: against its
-    plain version over 1 and 8 iterations (1e-5, 2e-3, as at 500 x 500), a
-    fixed-count solve twice bit for bit, and the time an iteration."""
+def large_system(nnode=1000000):
+    """bench.py's system at 1000 x 1000 (the coefficient from numpy seed 0):
+    the StencilOp and the full right-hand side."""
     from krylov_spdes_tpu_torch import fem
-    from krylov_spdes_tpu_torch.ops import pallas_cg as pc
     from krylov_spdes_tpu_torch.ops.stencil import build_stencil_op, to_full_vector
     mesh = fem.get_mesh(nnode)
     maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
@@ -994,33 +1004,47 @@ def kernel_h_large(card, nnode=1000000):
     A, b = fem.do_isotropic_elliptic_assembly(asm, np.exp(
         SIGMA * np.random.default_rng(0).normal(size=mesh.nnode)))
     h = int(round(np.sqrt(mesh.nnode)))
-    St = build_stencil_op(A, maps, (h, h))
-    b = to_full_vector(maps, b, mesh.nnode)
-    del asm, A
-    plan = pc.plan_for(b, h, h)
-    check(not plan.planes, f"kernel_h_large: plan {plan}")
-    errs = {}
-    for its, tol in ((1, 1e-5), (8, 2e-3)):
-        xk, itk, resk = pc.stencil_cg(St, b, its + 1, 1e-30)
-        xp, itp, resp = pc.stencil_cg_plain(St, b, its + 1, 1e-30)
-        check(int(itk) == int(itp) == its + 1,
-              f"kernel_h_large: it {int(itk)} / plain {int(itp)}")
-        errs[its] = {"x": rel(xk, xp),
-                     "res": abs(float(resk) - float(resp)) / float(resp)}
-        check(max(errs[its].values()) <= tol,
-              f"kernel_h_large vs plain over {its} iterations: {errs[its]}")
+    return build_stencil_op(A, maps, (h, h)), to_full_vector(maps, b, mesh.nnode)
+
+
+def run_large(card):
+    """Kernels H, C and D at 1000 x 1000, where a band's planes do not fit
+    in shared memory beside its vectors and are read from global memory:
+    each against its plain version over 1 and 8 iterations (as at
+    500 x 500), a fixed-count solve twice bit for bit, and the time an
+    iteration (211 less 11 iterations, tol² = 0)."""
+    from krylov_spdes_tpu_torch.ops import fused_cg as fc
+    from krylov_spdes_tpu_torch.ops import pallas_cg as pc
+    St, b = large_system()
+    ps = fc.build_padded_stencil(St)
+    bp = fc.pad_vec(ps, b)
+    minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    zero = bp.new_zeros(())
+    cases = (
+        ("kernel_h_large", pc.plan_for(b, St.H, St.W),
+         lambda m: pc.stencil_cg(St, b, m, 0.0),
+         lambda m: pc.stencil_cg_plain(St, b, m, 0.0), {}),
+        ("kernel_c_large", fc.plan_for(ps, bp, False),
+         lambda m: fc.whole_cg(ps, bp, m, zero),
+         lambda m: fc.whole_cg_plain(ps, bp, m, zero), {"K": ps.K}),
+        ("kernel_d_large", fc.plan_for(ps, bp, True),
+         lambda m: fc.whole_pcg(ps, minv, bp, m, zero),
+         lambda m: fc.whole_pcg_plain(ps, minv, bp, m, zero), {"K": ps.K}))
     few, many = 11, 211
-    x1, it1, _ = pc.stencil_cg(St, b, many, 0.0)
-    x2, it2, _ = pc.stencil_cg(St, b, many, 0.0)
-    check(int(it1) == int(it2) == many and torch.equal(x1, x2),
-          "kernel_h_large: a solve does not repeat bit for bit")
-    t_few = cuda_ms(lambda: pc.stencil_cg(St, b, few, 0.0), 3)
-    t_many = cuda_ms(lambda: pc.stencil_cg(St, b, many, 0.0), 3)
-    emit("kernel_h_large", H=h, W=h, rel_err=errs, tolerance={1: 1e-5, 8: 2e-3},
-         repeats_bit_for_bit=True, plan=dataclasses.asdict(plan),
-         barriers_per_iteration=H_BARRIERS,
-         us_per_iteration_events=1e3 * (t_many - t_few) / (many - few),
-         card=card)
+    for phase, plan, kern, plain, extra in cases:
+        check(not plan.planes, f"{phase}: plan {plan}")
+        errs, _ = over_1_and_8(phase, kern, plain)
+        x1, it1, _ = kern(many)
+        x2, it2, _ = kern(many)
+        check(int(it1) == int(it2) == many and torch.equal(x1, x2),
+              f"{phase}: a solve does not repeat bit for bit")
+        t_few = cuda_ms(lambda: kern(few), 3)
+        t_many = cuda_ms(lambda: kern(many), 3)
+        emit(phase, H=St.H, W=St.W, **extra, rel_err=errs,
+             tolerance=OVER_1_AND_8, repeats_bit_for_bit=True,
+             plan=dataclasses.asdict(plan), barriers_per_iteration=CG_BARRIERS,
+             us_per_iteration_events=1e3 * (t_many - t_few) / (many - few),
+             card=card)
 
 
 def clone_state(s):
@@ -1469,11 +1493,15 @@ def run(card):
     # ---- 4. kernels C and D: whole solves ------------------------------------
     tol2 = torch.tensor(RTOL, device="cuda") ** 2 * torch.sum(bp * bp)
     minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    zero = bp.new_zeros(())
     us_it = {}
     for key, name, kern, plain, args, per_it, line in (
             ("C", "whole_cg", fc.whole_cg, fc.whole_cg_plain, (bp,), 27, 473),
             ("D", "whole_pcg", fc.whole_pcg, fc.whole_pcg_plain, (minv, bp),
              31, 564)):
+        errs, _ = over_1_and_8(
+            f"kernel {key}", lambda m: kern(ps, *args, m, zero),
+            lambda m: plain(ps, *args, m, zero))
         xk, itk, resk = kern(ps, *args, MAXIT, tol2)
         xp, itp, resp = plain(ps, *args, MAXIT, tol2)
         itk, itp = int(itk), int(itp)
@@ -1483,6 +1511,9 @@ def run(card):
               f"kernel {key}: it {itk} (plain {itp}) outside the envelope")
         err_x = rel(xk, xp)
         check(err_x <= 1e-3, f"kernel {key}: x rel err {err_x}")
+        x2, it2, _ = kern(ps, *args, MAXIT, tol2)
+        check(int(it2) == itk and torch.equal(x2, xk),
+              f"kernel {key}: a solve does not repeat bit for bit")
         # inputs read once (planes, b, minv), x written once; the operations
         # of the iterations this run's data needed
         bnd, by = bound_ms((ps.K + len(args) + 1) * RC * 4,
@@ -1496,14 +1527,21 @@ def run(card):
             **timed(lambda: kern(ps, *args, MAXIT, tol2), 5, ["whole_cg_kernel"],
                     lambda: plain(ps, *args, MAXIT, tol2), 1))
         us_it[key] = 1e3 * kernels[key]["ms"] / (itk - 1)
+        plan_cd = fc.plan_for(ps, bp, key == "D")
+        check(plan_cd.grid <= torch.cuda.get_device_properties(0).multi_processor_count,
+              f"kernel {key}: more blocks than SMs: {plan_cd}")
         emit(f"kernel_{key.lower()}", it=itk, it_plain=itp, x_rel_err=err_x,
-             us_per_iteration=us_it[key], card=card,
+             rel_err=errs, tolerance=OVER_1_AND_8, repeats_bit_for_bit=True,
+             us_per_iteration=us_it[key],
+             us_per_iteration_events=1e3 * kernels[key]["ms_per_call"] / (itk - 1),
+             plan=dataclasses.asdict(plan_cd),
+             barriers_per_iteration=CG_BARRIERS, card=card,
              **{k: v for k, v in kernels[key].items() if k not in NAMING})
 
-    # fixed cost of one whole-solve iteration (two grid syncs, four block
-    # reductions): 11 against 211 iterations with tol² = 0, never met (in
-    # float64, so that the residual recurrence does not underflow), on a
-    # grid of 16 blocks and on one that fills every resident block
+    # fixed cost of one whole-solve iteration of kernel C (two all-gathers,
+    # a few block syncs): 11 against 211 iterations with tol² = 0, never met
+    # (in float64, so that the residual recurrence does not underflow), on
+    # 64 blocks of one row (64 x 64) and on 132 of 2-3 rows (368 x 368)
     for nn in (4096, 135424):
         m_s = fem.get_mesh(nn)
         maps_s = fem.get_dirichlet_inds(m_s.points, m_s.point_markers)
@@ -1520,7 +1558,7 @@ def run(card):
         t_few = cuda_ms(lambda: fc.whole_cg(ps_s, bp_s, 11, zero), 3)
         t_many = cuda_ms(lambda: fc.whole_cg(ps_s, bp_s, 211, zero), 3)
         emit("grid_sync", H=h, W=h, dtype="float64",
-             blocks=fc._lib().whole_cg_grid(1, ps_s.K, 0, h, h),
+             plan=dataclasses.asdict(fc.plan_for(ps_s, bp_s, False)),
              us_per_iteration=1e3 * (t_many - t_few) / 200, card=card)
 
     # ---- 5. the main path, with every launch count at 0 ----------------------
@@ -1602,6 +1640,7 @@ def run(card):
     run_kernel_h(card, St, b_full, ref["cg"], realizations, kernels,
                  us_it["C"])
     del realizations, solves, ref
+    run_large(card)
     run_chain_slice(card, mesh, plan, kernels)
     del plan, ps, St, A, asm
     torch.cuda.empty_cache()

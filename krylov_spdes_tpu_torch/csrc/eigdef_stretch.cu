@@ -76,48 +76,9 @@ __host__ __device__ inline long vec_elems(int nrmax, int C) {
   return 5L * nrmax * C + static_cast<long>(nrmax + 2) * C + 2 * kGuard;
 }
 
-// N consecutive values of T as one 16-byte access.
-template <typename T>
-struct Pack;
-template <>
-struct Pack<float> {
-  using V = float4;
-  static constexpr int n = 4;
-};
-template <>
-struct Pack<double> {
-  using V = double2;
-  static constexpr int n = 2;
-};
-
-template <typename T>
-__device__ __forceinline__ void ld16(const T* p, T* v) {
-  const typename Pack<T>::V q = *reinterpret_cast<const typename Pack<T>::V*>(p);
-  if constexpr (Pack<T>::n == 4) {
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  } else {
-    v[0] = q.x; v[1] = q.y;
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ typename Pack<T>::V pack(const T* v) {
-  typename Pack<T>::V q;
-  if constexpr (Pack<T>::n == 4) {
-    q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
-  } else {
-    q.x = v[0]; q.y = v[1];
-  }
-  return q;
-}
-
-template <typename T>
-__device__ __forceinline__ void st16(T* p, const T* v) {
-  *reinterpret_cast<typename Pack<T>::V*>(p) = pack(v);
-}
-
-// The same with an evict-first (streaming) store, for V's columns, which
-// nothing in the stretch reads again: they leave G and the planes in the L2.
+// st16 (csrc/persistent.cuh) with an evict-first (streaming) store, for
+// V's columns, which nothing in the stretch reads again: they leave G and
+// the planes in the L2.
 template <typename T>
 __device__ __forceinline__ void st16_stream(T* p, const T* v) {
   __stcs(reinterpret_cast<typename Pack<T>::V*>(p), pack(v));
@@ -420,16 +381,7 @@ extern "C" {
 int eigdef_stretch_limits(int dtype, int K, int* out) {
   const void* fn = pick_stretch(dtype, K);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, coop = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  if (err == cudaSuccess) out[1] = optin - static_cast<int>(attr.sharedSizeBytes);
-  return static_cast<int>(err);
+  return static_cast<int>(persistent_limits(fn, out));
 }
 
 // E. dtype: 0 = float32, 1 = float64. G: (2·nvec, R, C); Ac: (nvec, nvec);
@@ -460,24 +412,11 @@ int eigdef_stretch(int dtype, int K, const void* P, const void* minv,
       || smem != need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (static_cast<long>(per_sm) * sms < grid) {
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  }
   void* args[] = {&P, &minv, &G, &Ac, &Bc, &x, &r, &p, &V, &part, &sync,
                   &scratch, &tol2, &rTz, &res2_prev, &alphas, &betas, &res2,
                   &info, &rTz_out, &H, &W, &C, &nvec, &nsteps, &ivec0,
                   &nrmax, &vres, &wres};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPThreads), args,
-                                    static_cast<size_t>(smem),
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_persistent(fn, grid, smem, args, stream));
 }
 
 const char* error_string(int err) {

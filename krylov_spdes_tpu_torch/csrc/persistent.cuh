@@ -1,6 +1,8 @@
-// The persistent-block skeleton of kernels E (csrc/eigdef_stretch.cu) and H
-// (csrc/stencil_cg.cu): band ownership, an all-gather barrier and a
-// neighbour-only wait, and fixed-order block reductions with warp shuffles.
+// The persistent-block skeleton of kernels C, D (csrc/fused_cg.cu), E
+// (csrc/eigdef_stretch.cu) and H (csrc/stencil_cg.cu): band ownership, an
+// all-gather barrier and a neighbour-only wait, fixed-order block
+// reductions with warp shuffles, 16-byte band accesses, and on the host the
+// device's limits and the checked cooperative launch.
 //
 // Band ownership. The grid has at most one block per SM (the caller sizes it
 // from the device's SM count and from occupancy at the dynamic shared memory
@@ -123,6 +125,46 @@ __device__ __forceinline__ unsigned int wait_word(const unsigned long long* w,
     v = ld_acquire64(w);
   } while (static_cast<unsigned int>(v >> 32) < epoch);
   return static_cast<unsigned int>(v);
+}
+
+// N consecutive values of T as one 16-byte access, for the band passes.
+template <typename T>
+struct Pack;
+template <>
+struct Pack<float> {
+  using V = float4;
+  static constexpr int n = 4;
+};
+template <>
+struct Pack<double> {
+  using V = double2;
+  static constexpr int n = 2;
+};
+
+template <typename T>
+__device__ __forceinline__ void ld16(const T* p, T* v) {
+  const typename Pack<T>::V q = *reinterpret_cast<const typename Pack<T>::V*>(p);
+  if constexpr (Pack<T>::n == 4) {
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ typename Pack<T>::V pack(const T* v) {
+  typename Pack<T>::V q;
+  if constexpr (Pack<T>::n == 4) {
+    q.x = v[0]; q.y = v[1]; q.z = v[2]; q.w = v[3];
+  } else {
+    q.x = v[0]; q.y = v[1];
+  }
+  return q;
+}
+
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const T* v) {
+  *reinterpret_cast<typename Pack<T>::V*>(p) = pack(v);
 }
 
 // A value as 32-bit chunks and back, for the packed words.
@@ -282,5 +324,41 @@ struct Barrier {
     __syncthreads();
   }
 };
+
+// The device's limits for the persistent kernel fn: out[0] = SM count,
+// out[1] = the most dynamic shared memory a block of fn can ask for (the
+// opt-in maximum less fn's static shared memory). Fails with
+// cudaErrorNotSupported where the device has no cooperative launch.
+inline cudaError_t persistent_limits(const void* fn, int* out) {
+  int dev = 0, coop = 0, optin = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess) out[1] = optin - static_cast<int>(attr.sharedSizeBytes);
+  return err;
+}
+
+// Launch fn on grid blocks of kPThreads with smem bytes of dynamic shared
+// memory, cooperatively: cudaErrorCooperativeLaunchTooLarge if the blocks
+// are not all resident at once. Returns cudaGetLastError() after it.
+inline cudaError_t launch_persistent(const void* fn, int grid, int smem,
+                                     void** args, void* stream) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (static_cast<long>(per_sm) * sms < grid) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPThreads), args,
+                                    static_cast<size_t>(smem),
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 }  // namespace

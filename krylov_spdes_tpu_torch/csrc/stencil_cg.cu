@@ -243,16 +243,7 @@ extern "C" {
 int stencil_cg_limits(int dtype, int* out) {
   const void* fn = pick(dtype);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, coop = 0, optin = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
-  if (err == cudaSuccess) out[1] = optin - static_cast<int>(attr.sharedSizeBytes);
-  return static_cast<int>(err);
+  return static_cast<int>(persistent_limits(fn, out));
 }
 
 // H. dtype: 0 = float32, 1 = float64. x, rg, pg: (H, W) buffers the caller
@@ -275,24 +266,11 @@ int stencil_cg(int dtype, const void* P, const void* dd, const void* b,
       || smem != need) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kPThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (static_cast<long>(per_sm) * sms < grid) {
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  }
   float rtol2f = static_cast<float>(rtol2);
   void* tol_arg = dtype == 0 ? static_cast<void*>(&rtol2f) : static_cast<void*>(&rtol2);
   void* args[] = {&P, &dd, &b, &x, &rg, &pg, &sync, &scratch, &it,
                   &res, &H, &W, &nrmax, &vres, &pres, &maxit, tol_arg};
-  err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kPThreads), args,
-                                    static_cast<size_t>(smem),
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_persistent(fn, grid, smem, args, stream));
 }
 
 const char* error_string(int err) {

@@ -10,9 +10,12 @@ starts at 1 with the initial residual, stop at ||r|| <= rtol·||b||):
    leaves them to XLA (fused_cg.py:344-351).
 2. `vmem_cg` / `vmem_pcg`: the whole (Jacobi-P)CG solve in one persistent
    cooperative launch (kernels C and D, `whole_cg` / `whole_pcg`), the
-   Hopper counterpart of the TPU solve that stayed in VMEM. Its working set
-   sits in the H100's 50 MB L2 at the slice's sizes; there is no size limit
-   and no size switch.
+   Hopper counterpart of the TPU solve that stayed in VMEM: one block per
+   SM, each holding a band of node rows in shared memory
+   (`ops/persistent.py::whole_cg_plan`), two all-gather barriers an
+   iteration. Where a band does not fit in shared memory the same kernel
+   reads it from global memory; there is no size limit and no size
+   switch.
 
 Layout (Hopper's, not the TPU's 8-row/128-lane tiling): every vector is an
 (R, C) row-major grid with R = H + 4 and C = W + 1 rounded up to 32 (a
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .persistent import sync_words, whole_cg_plan
 from .stencil import StencilOp
 
 ROW0 = 2     # zero rows above the first node row (csrc/fused_cg.cu kRow0)
@@ -225,12 +229,33 @@ def _lib():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.cg_sweep_blocks.argtypes = [ci, ci]
     lib.cg_sweep.argtypes = [ci, ci] + [vp] * 8 + [ci] * 3 + [vp]
-    lib.whole_cg_grid.argtypes = [ci] * 5
-    lib.whole_cg.argtypes = [ci] * 3 + [vp] * 12 + [ci] * 5 + [vp]
-    for fn in (lib.cg_sweep_blocks, lib.cg_sweep, lib.whole_cg_grid,
+    lib.whole_cg_limits.argtypes = [ci, ci, ci, vp]
+    lib.whole_cg.argtypes = [ci] * 3 + [vp] * 11 + [ci] * 9 + [vp]
+    for fn in (lib.cg_sweep_blocks, lib.cg_sweep, lib.whole_cg_limits,
                lib.whole_cg):
         fn.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def limits(code: int, K: int, pcg: bool, device: int) -> tuple[int, int]:
+    """(SM count, the most dynamic shared memory a block of kernel C or D
+    can ask for) on the current device."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    cuda_build.check(lib, lib.whole_cg_limits(code, K, int(pcg), out),
+                     "whole_cg_limits")
+    return out[0], out[1]
+
+
+def plan_for(ps: PaddedStencil, b, pcg: bool):
+    """The launch plan of kernel C (pcg False) or D on ps, in b's dtype on
+    b's card."""
+    code = cuda_build.dtype_code(b)
+    with torch.cuda.device(b.device):
+        sms, smem_max = limits(code, ps.K, pcg, b.device.index or 0)
+    return whole_cg_plan(ps.H, ps.C, ps.K, pcg, b.element_size(), sms,
+                         smem_max)
 
 
 def _check_grid(ps: PaddedStencil, *grids):
@@ -269,20 +294,26 @@ def _whole(ps: PaddedStencil, minv, bp, maxit: int, tol2):
     pcg = minv is not None
     cuda_build.require_cuda(ps.planes, bp, tol2, *((minv,) if pcg else ()))
     _check_grid(ps, bp, *((minv,) if pcg else ()))
+    if any(t.data_ptr() % 16 for t in (ps.planes, bp, *((minv,) if pcg else ()))):
+        raise ValueError("kernels C and D read the planes, b and minv 16 "
+                         "bytes at a time: they must be 16-byte aligned")
     lib = _lib()
     code = cuda_build.dtype_code(bp)
-    grid = lib.whole_cg_grid(code, ps.K, int(pcg), ps.H, ps.W)
-    if grid < 0:
-        cuda_build.check(lib, -grid, "whole_cg_grid")
-    x, r, pa, pb, ap = (torch.zeros_like(bp) for _ in range(5))
-    part = bp.new_empty(3 * grid)
+    plan = plan_for(ps, bp, pcg)
+    x = torch.zeros_like(bp)
+    rg, pg = torch.empty_like(bp), torch.empty_like(bp)   # the halo slots
+    sync = torch.zeros(sync_words(plan.grid), dtype=torch.int32,
+                       device=bp.device)
+    scratch = bp.new_empty(1 if plan.vectors else plan.grid * plan.scratch_elems)
     it = torch.empty((), dtype=torch.int32, device=bp.device)
     res = bp.new_empty(())
     c = cuda_build.ptr
     err = lib.whole_cg(code, ps.K, int(pcg), c(ps.planes),
-                       c(minv) if pcg else None, c(bp), c(tol2), c(x), c(r),
-                       c(pa), c(pb), c(ap), c(part), c(it), c(res), ps.H,
-                       ps.W, ps.C, maxit, grid, cuda_build.stream(bp))
+                       c(minv) if pcg else None, c(bp), c(tol2), c(x), c(rg),
+                       c(pg), c(sync), c(scratch), c(it), c(res), ps.H, ps.W,
+                       ps.C, int(maxit), plan.grid, plan.nrmax,
+                       int(plan.vectors), int(plan.planes), plan.smem,
+                       cuda_build.stream(bp))
     cuda_build.check(lib, err, "whole_pcg" if pcg else "whole_cg")
     return x, it, res
 

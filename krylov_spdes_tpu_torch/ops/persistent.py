@@ -1,4 +1,5 @@
-"""Band partition and shared-memory plans of the persistent kernels E and H.
+"""Band partition and shared-memory plans of the persistent kernels C, D,
+E and H.
 
 The CUDA side is `csrc/persistent.cuh`: one block per SM, block b of nb
 owning a contiguous band of node rows, all-gather barriers between blocks.
@@ -45,8 +46,9 @@ class Plan:
 
     grid: blocks (one per SM at most); nrmax: the longest band's rows;
     vectors: the band's vectors in shared memory (else in a per-block
-    scratch area of `scratch_elems` values); planes: H's eight off-diagonal
-    planes in shared memory (else read from the input); w_rows: E's basis
+    scratch area of `scratch_elems` values); planes: the band's planes (H's
+    eight off-diagonal ones, C's and D's K) in shared memory beside the
+    vectors (else read from the input); w_rows: E's basis
     vectors whose band rows are in shared memory (the rest are read from G);
     smem: dynamic shared memory bytes a block."""
     grid: int
@@ -58,6 +60,16 @@ class Plan:
     scratch_elems: int
 
 
+def _band_plan(grid: int, nrmax: int, vec: int, planes: int, itemsize: int,
+               smem_max: int) -> Plan:
+    """The vector area in shared memory if it fits, then the planes if they
+    fit beside it; what does not fit is read from global memory."""
+    vres = vec * itemsize <= smem_max
+    pres = vres and (vec + planes) * itemsize <= smem_max
+    smem = itemsize * ((vec if vres else 0) + (planes if pres else 0))
+    return Plan(grid, nrmax, vres, pres, 0, smem, vec)
+
+
 def stencil_cg_plan(H: int, W: int, itemsize: int, sms: int,
                     smem_max: int) -> Plan:
     """Kernel H (csrc/stencil_cg.cu): the vector area (P0 + dir_diag, x, r,
@@ -65,12 +77,23 @@ def stencil_cg_plan(H: int, W: int, itemsize: int, sms: int,
     first, then the eight other planes if they fit beside it."""
     grid = grid_blocks(H, sms)
     nrmax = _cdiv(H, grid)
-    vec = 4 * nrmax * W + (nrmax + 2) * (W + 2)
-    planes = 8 * nrmax * W
-    vres = vec * itemsize <= smem_max
-    pres = vres and (vec + planes) * itemsize <= smem_max
-    smem = itemsize * ((vec if vres else 0) + (planes if pres else 0))
-    return Plan(grid, nrmax, vres, pres, 0, smem, vec)
+    return _band_plan(grid, nrmax, 4 * nrmax * W + (nrmax + 2) * (W + 2),
+                      8 * nrmax * W, itemsize, smem_max)
+
+
+def whole_cg_plan(H: int, C: int, K: int, pcg: bool, itemsize: int, sms: int,
+                  smem_max: int) -> Plan:
+    """Kernels C and D (csrc/fused_cg.cu) on the padded layout of pitch C:
+    the vector area (x, r, Ap and, for D, minv over the band's nrmax padded
+    rows, then the direction tile of nrmax + 2 padded rows with 4 zeros at
+    each end) first, then, if they fit beside it, 4 zeros and the K planes
+    over the band's rows (for K = 5 also the row above them, which the
+    mirrored W, S, SW, NW bonds read)."""
+    grid = grid_blocks(H, sms)
+    nrmax = _cdiv(H, grid)
+    vec = (3 + int(pcg)) * nrmax * C + (nrmax + 2) * C + 8
+    planes = 4 + K * (nrmax + (K == 5)) * C
+    return _band_plan(grid, nrmax, vec, planes, itemsize, smem_max)
 
 
 def stretch_plan(H: int, C: int, nvec: int, itemsize: int, sms: int,

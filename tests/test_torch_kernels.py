@@ -346,14 +346,12 @@ def test_kernel_h_where_the_band_does_not_fit(dtype):
     assert int(it) == int(it2) == 200 and torch.equal(x, x2)
 
 
-@pytest.mark.cuda
-def test_kernel_h_non_square_grid_and_maxit_one():
-    _need_card()
-    g = torch.Generator(device="cuda").manual_seed(5)
-    H, W = 37, 53
+def _random_spd_stencil(H, W, g):
+    """A random symmetric positive definite 9-point operator on an H x W
+    grid, float64 on the card: random planes, the bonds mirrored, the
+    diagonal dominant."""
     planes = torch.randn(9, H, W, generator=g, device="cuda",
                          dtype=torch.float64) * 0.1
-    # symmetric positive definite: mirror the bonds, dominate the diagonal
     S = tst.StencilOp(planes=planes, dir_diag=torch.zeros_like(planes[0]),
                       slot=torch.zeros(0, dtype=torch.int64, device="cuda"),
                       H=H, W=W)
@@ -367,8 +365,16 @@ def test_kernel_h_non_square_grid_and_maxit_one():
         i0, i1, j0, j1 = max(0, -di), min(H, H - di), max(0, -dj), min(W, W - dj)
         P[k, i0:i1, j0:j1] = sym[idx[i0:i1, j0:j1],
                                  idx[i0 + di:i1 + di, j0 + dj:j1 + dj]]
-    S = tst.StencilOp(planes=P, dir_diag=torch.ones_like(P[0]) * 0.5,
-                      slot=S.slot, H=H, W=W)
+    return tst.StencilOp(planes=P, dir_diag=torch.ones_like(P[0]) * 0.5,
+                         slot=S.slot, H=H, W=W)
+
+
+@pytest.mark.cuda
+def test_kernel_h_non_square_grid_and_maxit_one():
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    H, W = 37, 53
+    S = _random_spd_stencil(H, W, g)
     b = torch.randn(H * W, generator=g, device="cuda", dtype=torch.float64)
     x, it, res = tpc.stencil_cg(S, b, 500, 1e-10)
     xp, itp, resp = tpc.stencil_cg_plain(S, b, 500, 1e-10)
@@ -378,3 +384,95 @@ def test_kernel_h_non_square_grid_and_maxit_one():
     assert int(it1) == 1 and float(x1.abs().max()) == 0.0
     torch.testing.assert_close(res1, torch.linalg.vector_norm(b), rtol=1e-12,
                                atol=0)
+
+
+def _c_and_d(ps, bp):
+    """(kernel, plain version, operands) of kernels C and D on ps."""
+    minv = tfc._jacobi_minv(ps, tfc._unblock_planes(ps), None)
+    return ((tfc.whole_cg, tfc.whole_cg_plain, (bp,)),
+            (tfc.whole_pcg, tfc.whole_pcg_plain, (minv, bp)))
+
+
+def _hold_to_plain_over_1_and_8(ps, bp):
+    """Kernels C and D against their plain versions over 1 and 8
+    iterations (tol² = 0: the count is exact): CG amplifies a last-bit
+    difference from iteration to iteration and the two reduce in different
+    orders, so the tolerances are kernel H's."""
+    eps = torch.finfo(bp.dtype).eps
+    zero = bp.new_zeros(())
+    for kern, plain, args in _c_and_d(ps, bp):
+        for maxit, tol in ((2, 50 * eps), (9, 5e4 * eps)):
+            n0 = kern.launches
+            x, it, res = kern(ps, *args, maxit, zero)
+            assert kern.launches == n0 + 1
+            xp, itp, resp = plain(ps, *args, maxit, zero)
+            assert int(it) == int(itp) == maxit
+            torch.testing.assert_close(x, xp, rtol=tol,
+                                       atol=tol * float(xp.abs().max()))
+            torch.testing.assert_close(res, resp, rtol=tol, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_c_d_match_plain_over_1_and_8_iterations(sym, dtype):
+    """Kernels C and D on the persistent skeleton: against their plain
+    versions over 1 and 8 iterations, K = 5 and 9; a whole solve repeats bit
+    for bit; one block an SM at most."""
+    _need_card()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for nn in (1369, 40000):
+        St, b = _system(nn, "cuda", dtype)
+        ps = tfc.build_padded_stencil(St, sym=sym)
+        bp = tfc.pad_vec(ps, b)
+        _hold_to_plain_over_1_and_8(ps, bp)
+        tol2 = (1e-5 if dtype == torch.float32 else 1e-8) ** 2 * torch.sum(bp * bp)
+        for kern, _, args in _c_and_d(ps, bp):
+            plan = tfc.plan_for(ps, bp, kern is tfc.whole_pcg)
+            assert plan.grid == min(ps.H, sms) and plan.vectors
+            x, it, _ = kern(ps, *args, 3000, tol2)
+            x2, it2, _ = kern(ps, *args, 3000, tol2)
+            assert int(it) == int(it2) < 3000 and torch.equal(x, x2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sym", [False, True])
+def test_kernels_c_d_non_square_grid_and_maxit_one(sym):
+    """A 37 x 53 grid (37 bands of one row, pitch 64): a solve against the
+    plain version; maxit = 1 applies nothing, x = 0 and ‖r‖ = ‖b‖."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    S = _random_spd_stencil(37, 53, g)
+    ps = tfc.build_padded_stencil(S, sym=sym)
+    assert ps.K == (5 if sym else 9)
+    bp = tfc.pad_vec(ps, torch.randn(S.n, generator=g, device="cuda",
+                                     dtype=torch.float64))
+    tol2 = 1e-20 * torch.sum(bp * bp)
+    for kern, plain, args in _c_and_d(ps, bp):
+        x, it, res = kern(ps, *args, 500, tol2)
+        xp, itp, resp = plain(ps, *args, 500, tol2)
+        assert abs(int(it) - int(itp)) <= 1 and int(it) < 500
+        torch.testing.assert_close(x, xp, rtol=1e-7, atol=1e-9)
+        x1, it1, res1 = kern(ps, *args, 1, tol2)
+        assert int(it1) == 1 and float(x1.abs().max()) == 0.0
+        torch.testing.assert_close(res1, torch.linalg.vector_norm(bp),
+                                   rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernels_c_d_where_the_band_does_not_fit(dtype):
+    """1000 x 1000: the planes are read from global memory (float32), and
+    the vectors too (float64). Against the plain versions over 1 and 8
+    iterations; a longer solve repeats bit for bit."""
+    _need_card()
+    St, b = _system(1000000, "cuda", dtype)
+    ps = tfc.build_padded_stencil(St)
+    bp = tfc.pad_vec(ps, b)
+    _hold_to_plain_over_1_and_8(ps, bp)
+    for kern, _, args in _c_and_d(ps, bp):
+        plan = tfc.plan_for(ps, bp, kern is tfc.whole_pcg)
+        assert not plan.planes and plan.vectors == (dtype == torch.float32)
+        x, it, _ = kern(ps, *args, 200, bp.new_zeros(()))
+        x2, it2, _ = kern(ps, *args, 200, bp.new_zeros(()))
+        assert int(it) == int(it2) == 200 and torch.equal(x, x2)
