@@ -21,7 +21,12 @@ Phases:
   1. build      nvcc build time; the card's name and power limit
   2. kernel_a   stencil SpMV vs its plain version; kernel, plain, library
                 (torch.sparse.mm on the same operator in CSR) and bound times
-  3. kernel_b   one CG sweep vs its plain version
+  3. kernel_b   one CG sweep vs its plain version (pn and Ap bit-equal, pads
+                zero, d within 1e-5 and repeated bit for bit), its device
+                operations a call (one launch), L2-cold and L2-warm device
+                times, CUDA-event time a call, bound and share of it, launch
+                plan; kernel_b_parent: the parent commit's figures with its
+                two memsets (a constant, PERF.md §6)
   4. kernel_c / kernel_d   whole-solve CG / Jacobi-PCG vs their plain versions
      over 1 and 8 iterations, a solve twice bit for bit, the shared-memory
      plan (grid, nrmax, resident vectors and planes, bytes a block) and
@@ -33,7 +38,9 @@ Phases:
   5. main_path  with every launch count set to 0: fused_pcg (B), vmem_cg (C),
                 vmem_pcg (D) on the bench system, then per realization
                 stencil_assemble -> refill_padded_stencil -> vmem_pcg ->
-                refined_pcg (A); each solve held against solvers.cg/pcg
+                refined_pcg (A); each solve held against solvers.cg/pcg;
+                B launched once a fused_pcg iteration after the first, and
+                fused_pcg's it, ms and µs an iteration
   6. kernel_e   one stretch of eigDef-PCG on the operands of a real recycled
                 solve vs its plain version, and again bit for bit; its
                 shared-memory plan (bytes a block, blocks, resident rows of
@@ -69,10 +76,12 @@ Phases:
                 b within 5% of the range its own plain version spans on the
                 same right-hand sides, its shared-memory plan and barriers;
                 main_path_h, with H's count at 0: stencil_cg on the bench
-                system and on the realizations' operators; kernel_h_large,
-                kernel_c_large, kernel_d_large: 1000 x 1000, where the planes
-                do not fit in shared memory, vs their plain versions over 1
-                and 8 iterations, bit for bit, µs an iteration
+                system and on the realizations' operators; kernel_b_large:
+                one sweep at 1000 x 1000 vs its plain version, L2-cold;
+                kernel_h_large, kernel_c_large, kernel_d_large: 1000 x 1000,
+                where the planes do not fit in shared memory, vs their plain
+                versions over 1 and 8 iterations, bit for bit, µs an
+                iteration
  11. dd_protocol   seed_dd_chain (eigPCG + Neumann-Neumann on the interface
                 system), 4 warm-up and 5 timed make_dd_chain_step steps;
                 dd_repeat: one step twice from the same state and W, equal
@@ -141,6 +150,18 @@ H_ENVELOPE = 9     # last-bit copies of b behind kernel H's `it` envelope
 
 
 L2_BYTES = 50e6
+SWEEP_KERNEL = "cg_sweep_strip_kernel"
+# Kernel B before its redesign (two memsets of pn and Ap, cg_sweep_kernel
+# and sum_kernel a call): device µs a call of the parent commit's cg_sweep,
+# all four operations, on this script's operands in float32, four runs of
+# krylov_spdes_tpu_torch/bench/sweep_bench.py --tree <that checkout> on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6). A constant: the old kernel
+# is no longer in the tree.
+PARENT_B = {"device_ops_per_call": 4, "us_l2_cold_with_memsets": [10.52, 10.69],
+            "us_l2_warm_with_memsets": [8.69, 8.87],
+            "us_l2_cold_1000x1000_with_memsets": [25.29, 25.75],
+            "source": "bench/sweep_bench.py --tree <parent>, "
+                      "NVIDIA H100 80GB HBM3, 700.00 W"}
 # barriers an iteration of the persistent kernels (csrc/persistent.cuh): E,
 # and the whole-solve CG kernels C, D and H
 E_BARRIERS = {"all_gather": 3, "neighbour_only": 1}
@@ -284,6 +305,41 @@ def timed(fn, reps, names, plain, plain_reps, library=None):
 def rel(a, b):
     return float(torch.linalg.vector_norm((a - b).double())
                  / torch.linalg.vector_norm(b.double()))
+
+
+def device_ops(fn, reps):
+    """(operations a call, their names): every device operation (kernel,
+    memset, copy) that fn() makes, from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sum(e.count for e in found) / reps, [e.key for e in found]
+
+
+def check_sweep(what, fc, ps, r, p, beta):
+    """Kernel B against its plain version: pn and Ap bit-equal with their
+    pads exactly zero, d within 1e-5 and the same bits over 3 calls.
+    Returns the relative errors and the largest absolute error."""
+    pn0, ap0, d0 = fc.cg_sweep_plain(ps, r, p, beta)
+    outs = [fc.cg_sweep(ps, r, p, beta) for _ in range(3)]
+    pn, ap, d = outs[0]
+    check(torch.equal(pn, pn0) and torch.equal(ap, ap0),
+          f"{what}: pn or Ap not bit-equal to the plain version")
+    r0 = fc.ROW0
+    for a in (pn, ap):
+        check(not (a[:r0].any() or a[r0 + ps.H:].any() or a[:, ps.W:].any()),
+              f"{what}: a pad of pn or Ap is not zero")
+    check(all(torch.equal(o[2], d) for o in outs),
+          f"{what}: d does not repeat bit for bit")
+    errs = {"pn": rel(pn, pn0), "ap": rel(ap, ap0),
+            "d": abs(float(d) - float(d0)) / abs(float(d0))}
+    check(errs["d"] <= 1e-5, f"{what} vs plain: {errs}")
+    return errs, abs(float(d - d0))
 
 
 def over_1_and_8(what, kern, plain):
@@ -1008,9 +1064,10 @@ def large_system(nnode=1000000):
 
 
 def run_large(card):
-    """Kernels H, C and D at 1000 x 1000, where a band's planes do not fit
-    in shared memory beside its vectors and are read from global memory:
-    each against its plain version over 1 and 8 iterations (as at
+    """Kernel B at 1000 x 1000 (kernel_b_large: against its plain version,
+    timed L2-cold), then kernels H, C and D there, where a band's planes do
+    not fit in shared memory beside its vectors and are read from global
+    memory: each against its plain version over 1 and 8 iterations (as at
     500 x 500), a fixed-count solve twice bit for bit, and the time an
     iteration (211 less 11 iterations, tol² = 0)."""
     from krylov_spdes_tpu_torch.ops import fused_cg as fc
@@ -1018,6 +1075,21 @@ def run_large(card):
     St, b = large_system()
     ps = fc.build_padded_stencil(St)
     bp = fc.pad_vec(ps, b)
+    # kernel B at this size: against its plain version, timed L2-cold
+    check(ps.K == 5, f"kernel_b_large: K = {ps.K}")
+    p = fc.pad_vec(ps, torch.randn(St.n, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0)))
+    beta = torch.tensor(0.3, device="cuda")
+    errs, _ = check_sweep("kernel_b_large", fc, ps, bp, p, beta)
+    copies = lambda: (dataclasses.replace(ps, planes=ps.planes.clone()),  # noqa: E731
+                      bp.clone(), p.clone(), beta.clone())
+    ms, ms_call, how = timings(cold(fc.cg_sweep, copies), 100)
+    bnd, by = bound_ms((ps.K + 4) * ps.R * ps.C * 4, 21 * St.n)
+    check(ms >= bnd, f"kernel_b_large: {ms} ms is below its bound {bnd} ms")
+    emit("kernel_b_large", H=St.H, W=St.W, K=ps.K, rel_err=errs,
+         tolerance=1e-5, bit_equal=True, ms_l2_cold=ms, ms_per_call=ms_call,
+         timing=how, bound_ms=bnd, bound_by=by, bound_share=bnd / ms,
+         plan=dataclasses.asdict(fc.sweep_plan_for(ps, bp)), card=card)
     minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
     zero = bp.new_zeros(())
     cases = (
@@ -1466,28 +1538,28 @@ def run(card):
     bp = fc.pad_vec(ps, b_full)
     p = fc.pad_vec(ps, torch.randn(n, generator=g, device="cuda"))
     beta = torch.tensor(0.3, device="cuda")
-    pn, ap, d = fc.cg_sweep(ps, bp, p, beta)
-    pn0, ap0, d0 = fc.cg_sweep_plain(ps, bp, p, beta)
-    errs = {"pn": rel(pn, pn0), "ap": rel(ap, ap0),
-            "d": abs(float(d) - float(d0)) / abs(float(d0))}
-    check(max(errs.values()) <= 1e-5, f"kernel B vs plain: {errs}")
+    errs, max_abs = check_sweep("kernel B", fc, ps, bp, p, beta)
     bnd, by = bound_ms((ps.K + 4) * RC * 4, 21 * n)
     copies = lambda: (dataclasses.replace(ps, planes=ps.planes.clone()),  # noqa: E731
                       bp.clone(), p.clone(), beta.clone())
+    # every device operation of a call is timed (names None): the one launch
     kernels["B"] = dict(
         name="cg_sweep", route="cuda",
         source="krylov_spdes_tpu_torch/csrc/fused_cg.cu",
         replaces="krylov_spdes_tpu/ops/fused_cg.py:207",
-        max_abs_err=max(float((pn - pn0).abs().max()),
-                        float((ap - ap0).abs().max()), abs(float(d - d0))),
-        bound_ms=bnd, bound_by=by,
-        **timed(cold(fc.cg_sweep, copies), 200,
-                ["cg_sweep_kernel", "sum_kernel"],
+        max_abs_err=max_abs, bound_ms=bnd, bound_by=by,
+        **timed(cold(fc.cg_sweep, copies), 200, None,
                 cold(fc.cg_sweep_plain, copies), 50))
-    warm = timings(lambda: fc.cg_sweep(ps, bp, p, beta), 200,
-                   ["cg_sweep_kernel", "sum_kernel"])[0]
+    per_call, ops = device_ops(lambda: fc.cg_sweep(ps, bp, p, beta), 20)
+    check(per_call == 1 and all(SWEEP_KERNEL in o for o in ops),
+          f"kernel B: {per_call} device operations a call: {ops}")
+    warm, warm_call, _ = timings(lambda: fc.cg_sweep(ps, bp, p, beta), 200)
+    emit("kernel_b_parent", **PARENT_B)
     emit("kernel_b", rel_err=errs, tolerance=1e-5, card=card,
-         ms_l2_warm=warm,
+         launches_per_call=per_call, ms_l2_cold=kernels["B"]["ms"],
+         ms_l2_warm=warm, ms_per_call_l2_warm=warm_call,
+         bound_share=bnd / kernels["B"]["ms"],
+         plan=dataclasses.asdict(fc.sweep_plan_for(ps, bp)),
          **{k: v for k, v in kernels["B"].items() if k not in NAMING})
 
     # ---- 4. kernels C and D: whole solves ------------------------------------
@@ -1597,7 +1669,13 @@ def run(card):
             refine_sweeps=cert.refines, certified_iters=int(cert.it),
             St=St_r, b=b_r, x_df32=cert.x_df32))
     launches = {k: fn.launches for k, fn in counters.items()}
-    emit("main_path", launches=launches)
+    it_f, sec_f = solves["fused_pcg"][1], solves["fused_pcg"][3]
+    check(launches["B"] == it_f - 1,
+          f"main_path: {launches['B']} launches of B for fused_pcg's {it_f} "
+          "iterations")
+    emit("main_path", launches=launches, fused_pcg_it=it_f,
+         fused_pcg_ms=1e3 * sec_f,
+         fused_pcg_us_per_iteration=1e6 * sec_f / max(it_f - 1, 1))
 
     # checks of the main path (the reference solves run after the counts)
     ref = {"cg": cg(St, b_full, maxit=MAXIT, rtol=RTOL),

@@ -1,7 +1,7 @@
 // Shared device helpers of the port's kernels on the padded layout of
 // krylov_spdes_tpu_torch/ops/fused_cg.py (see csrc/fused_cg.cu for the
-// layout): node indexing, the 9-point apply from neighbour values, and the
-// fixed-order block and grid reductions.
+// layout): the 9-point apply from neighbour values and the fixed-order
+// block and grid reductions.
 
 #pragma once
 
@@ -11,11 +11,6 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRow0 = 2;  // zero rows above the first node row
-
-__device__ __forceinline__ long node_index(long t, int W, int C) {
-  const long i = t / W;
-  return (i + kRow0) * C + (t - i * W);
-}
 
 // (A·v)[q] from the node's own and its 8 neighbours' values. Sum order
 // follows krylov_spdes_tpu/ops/fused_cg.py::_apply_full.

@@ -6,8 +6,10 @@ starts at 1 with the initial residual, stop at ||r|| <= rtol·||b||):
 
 1. `fused_cg` / `fused_pcg`: a host loop whose sweep
        pn ← z + β·p ; Ap ← A·pn ; d ← pnᵀAp       (kernel B, `cg_sweep`)
-   is one kernel, with the axpys and rᵀr left to torch, as the JAX package
-   leaves them to XLA (fused_cg.py:344-351).
+   is one cooperative launch of one kernel (strips of rows walked with a
+   window of direction rows in shared memory, `sweep_plan`), with the axpys
+   and rᵀr left to torch, as the JAX package leaves them to XLA
+   (fused_cg.py:344-351).
 2. `vmem_cg` / `vmem_pcg`: the whole (Jacobi-P)CG solve in one persistent
    cooperative launch (kernels C and D, `whole_cg` / `whole_pcg`), the
    Hopper counterpart of the TPU solve that stayed in VMEM: one block per
@@ -227,11 +229,11 @@ def whole_pcg_plain(ps: PaddedStencil, minv, bp, maxit: int, tol2):
 def _lib():
     lib = cuda_build.load("fused_cg")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.cg_sweep_blocks.argtypes = [ci, ci]
-    lib.cg_sweep.argtypes = [ci, ci] + [vp] * 8 + [ci] * 3 + [vp]
+    lib.cg_sweep_limits.argtypes = [ci, ci, ci, vp]
+    lib.cg_sweep.argtypes = [ci, ci] + [vp] * 8 + [ci] * 6 + [vp]
     lib.whole_cg_limits.argtypes = [ci, ci, ci, vp]
     lib.whole_cg.argtypes = [ci] * 3 + [vp] * 11 + [ci] * 9 + [vp]
-    for fn in (lib.cg_sweep_blocks, lib.cg_sweep, lib.whole_cg_limits,
+    for fn in (lib.cg_sweep_limits, lib.cg_sweep, lib.whole_cg_limits,
                lib.whole_cg):
         fn.restype = ci
     return lib
@@ -265,25 +267,117 @@ def _check_grid(ps: PaddedStencil, *grids):
                              f"{tuple(g.shape)}")
 
 
+SWEEP_GROUPS = 128  # csrc/fused_cg.cu kSweepGroups: 16-byte groups a block spans
+SWEEP_ROWS = 2      # rows a strip, where the device holds the blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """Launch plan of kernel B: a (segments, strips) grid. A segment is
+    `groups` 16-byte groups of a padded row, one a thread (`threads`, a
+    multiple of 32); a strip is a band of node rows (persistent.band_rows),
+    at most `rows` of them. smem: dynamic shared memory bytes a block."""
+    segments: int
+    groups: int
+    threads: int
+    strips: int
+    rows: int
+    smem: int
+
+
+def sweep_plan(H: int, C: int, K: int, esize: int, sms: int, per_sm: int,
+               rows: int = SWEEP_ROWS) -> SweepPlan:
+    """Kernel B's launch plan on an H-row grid of pitch C, K planes, values
+    of esize bytes, on a device of `sms` SMs that holds `per_sm` such
+    blocks an SM at once. A row is cut into the fewest segments of at most
+    SWEEP_GROUPS groups; strips of `rows` rows (other values for
+    measurements only), longer where the device could not hold all the
+    blocks at once (the launch is cooperative)."""
+    n = 16 // esize
+    G = C // n
+    segments = _cdiv(G, SWEEP_GROUPS)
+    groups = _cdiv(G, segments)
+    most = sms * per_sm // segments
+    if most < 1:
+        raise ValueError(f"kernel B: a device of {sms} SMs holding {per_sm} "
+                         f"blocks each cannot run {segments} segments at once")
+    strips = min(H, _cdiv(H, rows), most)
+    smem = (4 + (9 if K == 5 else 0)) * (groups + 2) * n * esize
+    return SweepPlan(segments=segments, groups=groups,
+                     threads=_cdiv(groups, 32) * 32, strips=strips,
+                     rows=_cdiv(H, strips), smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_limits(code: int, K: int, groups: int, device: int) -> tuple[int, int]:
+    """(SM count, blocks of kernel B spanning `groups` groups an SM holds at
+    once) on the current device."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    cuda_build.check(lib, lib.cg_sweep_limits(code, K, groups, out),
+                     "cg_sweep_limits")
+    return out[0], out[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_plan_on(H: int, C: int, K: int, code: int, esize: int,
+                   device: int, rows: int) -> SweepPlan:
+    groups = sweep_plan(H, C, K, esize, 1, 1 << 20).groups
+    with torch.cuda.device(device):
+        sms, per_sm = sweep_limits(code, K, groups, device)
+    return sweep_plan(H, C, K, esize, sms, per_sm, rows)
+
+
+def sweep_plan_for(ps: PaddedStencil, r, rows: int = SWEEP_ROWS) -> SweepPlan:
+    """Kernel B's launch plan on ps, in r's dtype on r's card (made once
+    per shape, dtype and card)."""
+    return _sweep_plan_on(ps.H, ps.C, ps.K, cuda_build.dtype_code(r),
+                          r.element_size(), r.device.index or 0, rows)
+
+
+@functools.lru_cache(maxsize=64)
+def _sweep_slots(device, words: int, stream: int):
+    """Kernel B's packed words of the blocks' partials of d, zero (each
+    launch leaves them zero), made once per device, grid and stream and
+    reused by every call."""
+    return torch.zeros(words, dtype=torch.int64, device=device)
+
+
+def _check_aligned(what: str, *tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} 16 bytes at a time: they must be 16-byte "
+                         "aligned")
+
+
+def _sweep(ps: PaddedStencil, r, p, beta, plan: SweepPlan):
+    """One launch of kernel B on plan; returns (pn, Ap, d)."""
+    lib = _lib()
+    pn = torch.empty_like(r)   # the kernel writes every element, pads too
+    ap = torch.empty_like(r)
+    d = r.new_empty(())
+    stream = cuda_build.stream(r)
+    slots = _sweep_slots(r.device, plan.segments * plan.strips
+                         * r.element_size() // 4, stream.value)
+    c = cuda_build.ptr
+    err = lib.cg_sweep(cuda_build.dtype_code(r), ps.K, c(ps.planes), c(r),
+                       c(p), c(beta), c(pn), c(ap), c(slots), c(d), ps.H,
+                       ps.W, ps.C, plan.segments, plan.groups, plan.strips,
+                       stream)
+    cuda_build.check(lib, err, "cg_sweep")
+    return pn, ap, d
+
+
 def cg_sweep(ps: PaddedStencil, r, p, beta):
-    """Kernel B: (pn, Ap, d) on a CUDA tensor; the plain version on a CPU
-    tensor. beta is a 0-d tensor."""
+    """Kernel B: (pn, Ap, d) on a CUDA tensor, one launch; the plain
+    version on a CPU tensor. beta is a 0-d tensor."""
     if r.device.type == "cpu":
         return cg_sweep_plain(ps, r, p, beta)
     cuda_build.require_cuda(ps.planes, r, p, beta)
     _check_grid(ps, r, p)
-    lib = _lib()
-    pn = torch.zeros_like(r)
-    ap = torch.zeros_like(r)
-    part = r.new_empty(lib.cg_sweep_blocks(ps.H, ps.W))
-    d = r.new_empty(())
-    c = cuda_build.ptr
-    err = lib.cg_sweep(cuda_build.dtype_code(r), ps.K, c(ps.planes), c(r),
-                       c(p), c(beta), c(pn), c(ap), c(part), c(d), ps.H, ps.W,
-                       ps.C, cuda_build.stream(r))
-    cuda_build.check(lib, err, "cg_sweep")
+    _check_aligned("kernel B reads the planes, r and p", ps.planes, r, p)
+    out = _sweep(ps, r, p, beta, sweep_plan_for(ps, r))
     cg_sweep.launches += 1
-    return pn, ap, d
+    return out
 
 
 cg_sweep.launches = 0
@@ -294,9 +388,8 @@ def _whole(ps: PaddedStencil, minv, bp, maxit: int, tol2):
     pcg = minv is not None
     cuda_build.require_cuda(ps.planes, bp, tol2, *((minv,) if pcg else ()))
     _check_grid(ps, bp, *((minv,) if pcg else ()))
-    if any(t.data_ptr() % 16 for t in (ps.planes, bp, *((minv,) if pcg else ()))):
-        raise ValueError("kernels C and D read the planes, b and minv 16 "
-                         "bytes at a time: they must be 16-byte aligned")
+    _check_aligned("kernels C and D read the planes, b and minv", ps.planes,
+                   bp, *((minv,) if pcg else ()))
     lib = _lib()
     code = cuda_build.dtype_code(bp)
     plan = plan_for(ps, bp, pcg)

@@ -85,9 +85,25 @@ def test_pad_round_trip_and_zero_ring():
     assert tfc._unblock_planes(ps).shape == (ps.K * ps.R, ps.C)
 
 
-@pytest.mark.parametrize("sym", [False, True])
-def test_sweep_plain_matches_jax_k1(sym):
-    _, _, Sj, _, St, _ = _setup(seed=5)
+# Grids whose shapes meet kernel B's edges (csrc/fused_cg.cu): W + 1 exactly
+# 32 (pitch 32), W + 1 just over it (pitch 64), and a prime H, which no
+# strip height divides. get_mesh(nn) gives a (√nn)² grid.
+EDGE_GRIDS = {961: "31x31", 1024: "32x32", 1369: "37x37"}
+
+
+def _with_edge_grids(first, *cases):
+    """The cases at the default 30 x 30 grid under their old ids, then the
+    same cases on each edge grid."""
+    out = [pytest.param(*c, 900, id="-".join(map(str, c))) for c in cases]
+    out += [pytest.param(*c, nn, id="-".join(map(str, c)) + f"-{g}")
+            for nn, g in EDGE_GRIDS.items() for c in cases if c[0] in first]
+    return out
+
+
+@pytest.mark.parametrize("sym,nn", _with_edge_grids((False, True), (False,),
+                                                    (True,)))
+def test_sweep_plain_matches_jax_k1(sym, nn):
+    _, _, Sj, _, St, _ = _setup(nn=nn, seed=5)
     n = St.H * St.W
     rng = np.random.default_rng(8)
     r, p, beta = rng.normal(size=n), rng.normal(size=n), 0.7
@@ -115,13 +131,14 @@ def test_sweep_plain_matches_jax_k1(sym):
                     or out[:, pst.W:].any())
 
 
-@pytest.mark.parametrize("sym", [False, True])
-@pytest.mark.parametrize("solver", ["fused_cg", "fused_pcg", "vmem_cg",
-                                    "vmem_pcg"])
-def test_solver_matches_jax(solver, sym):
+@pytest.mark.parametrize("solver,sym,nn", _with_edge_grids(
+    ("fused_pcg",), *[(s, sym) for s in ("fused_cg", "fused_pcg", "vmem_cg",
+                                        "vmem_pcg") for sym in (False, True)]))
+def test_solver_matches_jax(solver, sym, nn):
     """Same `it` (±2 with the 5-plane form, whose product-then-shift terms
-    round differently, as in tests/test_fused_cg.py:71), x to rtol 1e-6."""
-    _, _, Sj, bj, St, bt = _setup(seed=7, coeff_seed=2)
+    round differently, as in tests/test_fused_cg.py:71), x to rtol 1e-6;
+    fused_pcg (kernel B's solver) also on the edge grids."""
+    _, _, Sj, bj, St, bt = _setup(nn=nn, seed=7, coeff_seed=2)
     psj = jfc.build_padded_stencil(Sj, tb=16, sym=sym)
     pst = tfc.build_padded_stencil(St, sym=sym)
     xj, itj, resj = getattr(jfc, solver)(psj, bj, maxit=1500, interpret=True)
@@ -132,3 +149,31 @@ def test_solver_matches_jax(solver, sym):
     tol = 1e-7 * float(np.linalg.norm(np.asarray(bj)))
     res_t = rest[int(itt) - 1] if solver.startswith("fused") else rest
     assert float(res_t) <= tol
+
+
+@pytest.mark.parametrize("H,W,esize,K", [
+    (500, 500, 4, 5), (500, 500, 8, 9), (1000, 1000, 4, 5), (31, 31, 4, 9),
+    (32, 32, 8, 5), (37, 37, 4, 5), (11, 1100, 4, 9), (11, 1100, 8, 5)])
+def test_sweep_plan_covers_the_grid(H, W, esize, K):
+    """Kernel B's launch plan: the segments cover a padded row's 16-byte
+    groups, one a thread; the strips cover the rows (band_rows) in two-row
+    strips where the device holds all the blocks at once, longer strips
+    where it does not; the shared memory is the window and, for K = 5, the
+    plane rows."""
+    from krylov_spdes_tpu_torch.ops.persistent import band_rows
+    C = -(-(W + 1) // 32) * 32
+    G = C * esize // 16
+    for sms, per_sm in ((132, 3), (132, 1), (4, 2)):
+        plan = tfc.sweep_plan(H, C, K, esize, sms, per_sm)
+        assert (plan.segments - 1) * plan.groups < G <= plan.segments * plan.groups
+        assert plan.groups <= tfc.SWEEP_GROUPS
+        assert plan.threads % 32 == 0 and plan.groups <= plan.threads < plan.groups + 32
+        assert plan.segments * plan.strips <= sms * per_sm
+        bands = band_rows(H, plan.strips)
+        assert sum(n for _, n in bands) == H and max(n for _, n in bands) == plan.rows
+        if plan.segments * -(-H // tfc.SWEEP_ROWS) <= sms * per_sm:
+            assert plan.rows == min(H, tfc.SWEEP_ROWS)
+        rows = 4 + (9 if K == 5 else 0)
+        assert plan.smem == rows * (plan.groups + 2) * 16
+    with pytest.raises(ValueError):
+        tfc.sweep_plan(H, C, K, esize, 1, 0)

@@ -476,3 +476,114 @@ def test_kernels_c_d_where_the_band_does_not_fit(dtype):
         x, it, _ = kern(ps, *args, 200, bp.new_zeros(()))
         x2, it2, _ = kern(ps, *args, 200, bp.new_zeros(()))
         assert int(it) == int(it2) == 200 and torch.equal(x, x2)
+
+
+# Kernel B's edge shapes: W + 1 exactly 32 (pitch 32) and just over it
+# (pitch 64), H prime (no strip height divides it), rows of more than 256
+# 16-byte groups (two or three segments), and 1000 x 1000.
+B_SHAPES = ((31, 31), (32, 32), (37, 37), (11, 1100), (1000, 1000))
+
+
+def _random_padded(H, W, K, dtype, seed=0):
+    """Random planes, r and p on the padded layout of an H x W grid (zero
+    ring), numpy-seeded, on the card."""
+    rng = np.random.default_rng(seed)
+    C = -(-(W + 1) // 32) * 32
+    R = H + 2 * tfc.ROW0
+
+    def grid(*lead):
+        a = np.zeros((*lead, R, C))
+        a[..., tfc.ROW0:tfc.ROW0 + H, :W] = rng.normal(size=(*lead, H, W))
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    ps = tfc.PaddedStencil(planes=grid(K), H=H, W=W, R=R, C=C, K=K)
+    return ps, grid(), grid()
+
+
+def _pads(ps, a):
+    r0 = tfc.ROW0
+    return torch.cat([a[:r0].reshape(-1), a[r0 + ps.H:].reshape(-1),
+                      a[:, ps.W:].reshape(-1)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", B_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("K", [5, 9])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_b_matches_plain_at_edge_shapes(shape, K, dtype, monkeypatch):
+    """One launch a call; pn and Ap bit-equal to the plain version with
+    their pads exactly zero even in memory filled with NaN before the call
+    (no memset is relied on); d within rounding of the plain sum and the
+    same bits over 3 calls; the blocks' packed partials (the flag words the
+    last block waits on) back at 0 after each call."""
+    _need_card()
+    ps, r, p = _random_padded(*shape, K, dtype)
+    beta = torch.tensor(0.7, dtype=dtype, device="cuda")
+    pn0, ap0, d0 = tfc.cg_sweep_plain(ps, r, p, beta)
+    plan = tfc.sweep_plan_for(ps, r)
+    empty_like = torch.empty_like
+    monkeypatch.setattr(torch, "empty_like",
+                        lambda t, **kw: empty_like(t, **kw).fill_(float("nan")))
+    ds = []
+    for _ in range(3):
+        n0 = tfc.cg_sweep.launches
+        pn, ap, d = tfc.cg_sweep(ps, r, p, beta)
+        assert tfc.cg_sweep.launches == n0 + 1
+        torch.testing.assert_close(pn, pn0, rtol=0, atol=0)
+        torch.testing.assert_close(ap, ap0, rtol=0, atol=0)
+        assert not (_pads(ps, pn).any() or _pads(ps, ap).any())
+        slots = tfc._sweep_slots(r.device, plan.segments * plan.strips
+                                 * r.element_size() // 4,
+                                 torch.cuda.current_stream().cuda_stream)
+        assert not slots.any()
+        ds.append(d)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(ds[0], d0, rtol=rtol, atol=0)
+    assert all(torch.equal(d, ds[0]) for d in ds)
+
+
+@pytest.mark.cuda
+def test_kernel_b_one_kernel_a_call():
+    """The profiler sees one device launch a call and no memset."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+    ps, r, p = _random_padded(500, 500, 5, torch.float32)
+    beta = torch.tensor(0.3, device="cuda")
+    tfc.cg_sweep(ps, r, p, beta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            tfc.cg_sweep(ps, r, p, beta)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    assert [e.key for e in events] == [e.key for e in events
+                                       if "cg_sweep_strip_kernel" in e.key]
+    assert sum(e.count for e in events) == 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_pcg_it_within_the_plain_sweeps_envelope(dtype, monkeypatch):
+    """fused_pcg through kernel B: its `it` within 5% of the range that
+    fused_pcg through the plain sweep spans on b and on copies of b changed
+    in their last bit (ROADMAP §3), x to the solve's accuracy; B launched
+    once an iteration after the first."""
+    _need_card()
+    St, b = _system(2500, "cuda", dtype)
+    ps = tfc.build_padded_stencil(St)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-8
+    n0 = tfc.cg_sweep.launches
+    x, it, res = tfc.fused_pcg(ps, b, maxit=2000, rtol=rtol)
+    assert tfc.cg_sweep.launches - n0 == int(it) - 1
+    rng = np.random.default_rng(3)
+    rhs = [b]
+    for idx in rng.choice(np.flatnonzero(b.cpu().numpy()), 4, replace=False):
+        bb = b.clone()
+        bb[idx] = torch.nextafter(bb[idx], bb[idx] * 2)
+        rhs.append(bb)
+    monkeypatch.setattr(tfc, "cg_sweep", tfc.cg_sweep_plain)
+    its = [int(tfc.fused_pcg(ps, bb, maxit=2000, rtol=rtol)[1]) for bb in rhs]
+    xp = tfc.fused_pcg(ps, b, maxit=2000, rtol=rtol)[0]
+    assert 0.95 * min(its) <= int(it) <= 1.05 * max(its), (int(it), its)
+    assert float(res[int(it) - 1]) <= rtol * float(torch.linalg.vector_norm(b))
+    err = float(torch.linalg.vector_norm(x - xp) / torch.linalg.vector_norm(xp))
+    assert err <= (1e-3 if dtype == torch.float32 else 1e-6), err
