@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: the stencil solve path, the
-recycled MCMC chain and the Schur-DD flagship chain.
+recycled MCMC chain, the Schur-DD flagship chain, and the certified
+preconditioned solves of Examples 06, 07 and 09.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,14 @@ maxit 2000, rtol 1e-6), then 2 seeded lognormal realizations certified at
 float32 recurrence tolerance 1e-5. The Schur-DD chain runs bench.py's DD
 protocol (get_mesh(32000), 30 subdomains through prepare_dd_stencil_assembly,
 the same 25 sine modes, nvec 30, spdim 90, maxit 500) and the 500 x 500 grid
-in 8 x 8 tiles.
+in 8 x 8 tiles. The certified arms of Examples 06, 07 and 09 run on the
+general DD plan of dd_general (32k nodes, 30 subdomains) with the same 25
+sine modes in place of the KL basis the protocols ran on, float32,
+certified at 1e-7 with inner solves at 1e-5; Example 06 takes 1
+realization where the protocol takes 2 (a cut that holds the run within
+three minutes of its earlier length), Example 07 2 realizations, Example 09
+one MCMC chain of 3 samples. precond_apply runs at Example 06's default
+size, get_mesh(4000) in 20 subdomains.
 
 Phases:
   1. build      nvcc build time; the card's name and power limit
@@ -103,8 +111,38 @@ Phases:
                 and 3 steps, then one step's merged DD solution against the
                 monolithic stencil system (float64 residual within twice the
                 solution's float32 floor)
+ 12b. ex06_certified   with kernel A's count at 0 before each samg solve:
+                amg, lorasc (nvec min(25, n_Γ/2), ε 0.01), bj (ndom blocks)
+                and samg, each built at ξ = 0 (const) and per realization
+                (rebuilt), from prepare_mc_sampler's draws; samg certifies
+                through refined_pcg (kernel A, launched once an inner
+                iteration), the others through refined_pcg_sparse in both
+                single_trace forms, which must agree; lorasc_randomized:
+                the lorasc build on the randomized range finder. Per arm it,
+                refines, the certified and the float64 true relative
+                residual, build and solve ms
+     ex07_certified   nn_const, nn_rebuilt and gamma_chol through
+                refined_dd_pcg on assembled_schur_operator(S, Sd), the
+                pullback table built once; one solve run twice, the same it
+                and bits of x_df32 and u_I
+     ex09_certified   one MCMC chain: pcg through refined_pcg_sparse,
+                eigpcg, eigdefpcg and defpcg through refined_recycled_solve
+                with Example 09's W bookkeeping, M0 = lorasc1 at ξ = 0, nvec
+                37, spdim 90; it per method and sample, rank(W); eigdefpcg's
+                mean it over samples 2-3 must be below pcg's
+     Every certified solve: breakdown false, its float64 true residual
+     (computed apart from the residual that certified it: CSR segment sums,
+     torch's CSR product, index_add_ over Γ) ≤ 1e-7·‖b‖, and TF32 off in
+     every preconditioner apply although the caller turned it on.
+     precond_apply   AMG, stencil AMG, block-Jacobi, Cholesky32/16,
+                Chebyshev, LORASC exact and randomized (one start block),
+                DDLR and NN-induced built on the card in float32 from the
+                rounded float64 inputs and applied to one seeded r, against
+                the same build in float64 on the CPU: relative difference
+                ≤ 1e-4 (≤ 2e-2 for Cholesky16)
  13. kernels    one {"kernels": [...]} line with each kernel's launches on
-                its main path (all must be > 0) and its times
+                its main path (all must be > 0; A's count includes the samg arm of
+                ex06_certified, printed there on its own) and its times
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero; so does a host without a CUDA device, or a directory without the
@@ -147,6 +185,17 @@ L2_EVICT_BYTES = 200e6   # four times the H100's 50 MB L2
 DD_NNODE, DD_NDOM, DD_NVEC, DD_MAXIT = 32000, 30, 30, 500
 DD_FULL_NDOM, DD_FULL_SPDIM = 64, 90
 H_ENVELOPE = 9     # last-bit copies of b behind kernel H's `it` envelope
+# the certified arms of Examples 06, 07 and 09 on dd_general's plan (32k
+# nodes, 30 subdomains): certified at 1e-7 with inner solves at 1e-5;
+# realizations of ex06 (cut from 2 to 1 to hold the run's length) and
+# ex07, samples of ex09's MCMC chain, ex09's maxit
+CERT_RTOL, CERT_INNER_RTOL = 1e-7, 1e-5
+EX06_REALIZATIONS, EX07_REALIZATIONS = 1, 2
+EX09_SAMPLES, EX09_MAXIT = 3, 5000
+# precond_apply: Example 06's default size (examples/common.py:23-25), and
+# the limits of the card's float32 builds against the CPU's float64 ones
+PA_NNODE, PA_NDOM = 4000, 20
+PA_TOL = {"float32": 1e-4, "cholesky16": 2e-2}
 
 
 L2_BYTES = 50e6
@@ -1184,7 +1233,7 @@ def dd_chain(card, phase, plan, part, state, nvec, spdim, maxit, warm, steps):
     return state, W, before, step
 
 
-def run_dd_slice(card, mesh250, dev="cuda"):
+def run_dd_slice(card, mesh250, kernels, dev="cuda"):
     """The Schur-DD flagship chain: DD refill -> condensation ->
     Neumann-Neumann -> recycled eigDef-PCG on Γ, single and batched."""
     from krylov_spdes_tpu_torch import chains, dd_chains, entry, fem
@@ -1383,7 +1432,9 @@ def run_dd_slice(card, mesh250, dev="cuda"):
          seconds=time.perf_counter() - t0)
     dd_chain(card, "dd_general", plan_g, part_g, one_state(lam, psi), nvec,
              spdim, maxit, warm=0, steps=2)
+    run_certified_slice(card, mesh, maps, part_g, plan_g, lam, psi, kernels)
     del plan_g, part_g
+    run_precond_apply(card)
     sync()
     t0 = time.perf_counter()
     fn, (s_e, W_e) = entry.entry()
@@ -1446,6 +1497,464 @@ def run_dd_slice(card, mesh250, dev="cuda"):
          true_relres_plain_float32_pcg=tr_ref,
          rel_diff_to_plain_solve=rel(u, ref.x), it_plain_pcg=int(ref.it),
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+
+
+# ---------------------------------------------------------------------------
+# Certified 1e-7 beyond the stencil and the preconditioner family: the
+# certified arms of Examples 06, 07 and 09 on the general DD plan, and each
+# preconditioner's apply on the card against its float64 build on the CPU
+# ---------------------------------------------------------------------------
+
+def synchronizer(dev):
+    return torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+
+def with_tf32_requested(fn):
+    """fn() with the caller's TF32 setting on: a certified solve must switch
+    it off inside."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def probed(M, seen):
+    """M, recording at each apply whether TF32 was on."""
+    def apply(r):
+        seen.append(torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+        return M(r)
+    return apply
+
+
+def pair64(pair):
+    return pair[0].double() + pair[1].double()
+
+
+def sparse_true_relres(A, b, pair):
+    """‖b − A x‖/‖b‖ in float64 through the CSR segment sums (csr_spmv), a
+    path apart from the ELL residual that certified the solve."""
+    from krylov_spdes_tpu_torch.ops.sparse import csr_spmv
+    b64 = b.double()
+    r = b64 - csr_spmv(A.with_data(A.data.double()), pair64(pair))
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+
+
+def stencil_true_relres(St, b, pair):
+    """‖b − A x‖/‖b‖ in float64 through torch's CSR product (csr_of)."""
+    b64 = b.double()
+    r = b64 - csr_of(St).to(torch.float64) @ pair64(pair)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+
+
+def dd_true_relres(plan, S, blocks, uI_pair, uG_pair):
+    """‖(r_I, r_Γ)‖/‖(b_I, b_Γ)‖ of the full DD system in float64, the Γ
+    sum by index_add_ (apart from the pullback sum that certified it)."""
+    A_II, A_IG, A_GGd, b_I, b_G = [t.double() for t in blocks]
+    im, gm = plan.imask.double(), plan.gmask.double()
+    g2g = S.gammad_to_gamma
+    uI, uG = pair64(uI_pair), pair64(uG_pair)
+    A_II = A_II * im[:, :, None] * im[:, None, :]
+    A_IG = A_IG * im[:, :, None] * gm[:, None, :]
+    A_GG = A_GGd * gm[:, :, None] * gm[:, None, :]
+    b_I = b_I * im
+    mv = lambda M, v: (M @ v[..., None])[..., 0]  # noqa: E731
+    xd = uG[g2g] * gm
+    rI = (b_I - mv(A_II, uI) - mv(A_IG, xd)) * im
+    sd = (mv(A_IG.transpose(-1, -2), uI) + mv(A_GG, xd)) * gm
+    rG = b_G.clone().index_add_(0, g2g.reshape(-1), -sd.reshape(-1))
+    bnorm = torch.sqrt(torch.sum(b_I * b_I) + torch.sum(b_G * b_G))
+    return float(torch.sqrt(torch.sum(rI * rI) + torch.sum(rG * rG)) / bnorm)
+
+
+def check_certified(phase, r, true_relres, seen):
+    check(not r.breakdown, f"{phase}: breakdown (refines {r.refines})")
+    check(true_relres <= CERT_RTOL,
+          f"{phase}: float64 true residual {true_relres} above {CERT_RTOL}")
+    check(seen and not any(seen), f"{phase}: TF32 on inside the solve "
+                                  f"({sum(seen)} of {len(seen)} applies)")
+
+
+def run_certified_slice(card, mesh, maps, part, plan, lam, psi, kernels,
+                        dev="cuda", nreal06=EX06_REALIZATIONS,
+                        nreal07=EX07_REALIZATIONS, nsmp=EX09_SAMPLES):
+    """ex06_certified, ex07_certified, ex09_certified on the general DD plan
+    of dd_general (mesh, maps, part, plan), float32 on `dev`."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.fem import schur
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    from krylov_spdes_tpu_torch.ops.df32 import build_gamma_pullback
+    from krylov_spdes_tpu_torch.ops.stencil import (build_stencil_op,
+                                                    to_full_vector)
+    from krylov_spdes_tpu_torch.precond import (
+        amg_precond, block_jacobi_precond, prepare_block_jacobi_plan,
+        prepare_lorasc_precond)
+    from krylov_spdes_tpu_torch.precond.dd_preconds import (
+        _dense_gamma_solve, assemble_gamma_matrix)
+    from krylov_spdes_tpu_torch.precond.stencil_amg import stencil_amg_precond
+    from krylov_spdes_tpu_torch.samplers import samplers
+    from krylov_spdes_tpu_torch.solvers import (defpcg, eigdefpcg, eigpcg, pcg,
+                                                refined_dd_pcg, refined_pcg,
+                                                refined_pcg_sparse,
+                                                refined_recycled_solve)
+    sync = synchronizer(dev)
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    ndom, n_gamma = part.ndom, part.n_gamma
+    nvec_lorasc = min(25, n_gamma // 2 or 1)
+    cert = dict(rtol=CERT_RTOL, inner_rtol=CERT_INNER_RTOL)
+    asm = fem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps, f_src,
+                                        u_dir, device=dev)
+    ones = torch.ones(mesh.nnode, dtype=torch.float32, device=dev)
+    A0, _ = fem.do_isotropic_elliptic_assembly(asm, ones)
+    blocks0 = fem.assemble_dd_values(plan, ones)
+    S0 = schur.prepare_schur_operator(plan, part, *blocks0[:3])
+
+    # ---- ex06_certified (ex06_pcg_stochastic.py:57-128) ------------------------
+    t_phase = time.perf_counter()
+    m1 = int(round(np.sqrt(mesh.nnode)))
+    St0 = build_stencil_op(A0, maps, (m1, m1))
+    bj_plan = prepare_block_jacobi_plan(A0, max(2, ndom))
+
+    def lorasc(coeff, **kw):
+        blocks = fem.assemble_dd_values(plan, coeff)
+        S = schur.prepare_schur_operator(plan, part, *blocks[:3])
+        return prepare_lorasc_precond(S, part, maps, nvec=nvec_lorasc,
+                                      eps_threshold=0.01, **kw)
+
+    def build(name, A, coeff):
+        sync()
+        t0 = time.perf_counter()
+        if name == "amg":
+            M = amg_precond(A)
+        elif name == "samg":
+            M = stencil_amg_precond(St0.with_csr_data(A.data))
+        elif name == "bj":
+            M = block_jacobi_precond(A, max(2, ndom), plan=bj_plan)
+        else:
+            M = lorasc(coeff)
+        sync()
+        return M, 1e3 * (time.perf_counter() - t0)
+
+    strategies = ("amg", "lorasc", "bj", "samg")
+    const = {s: build(s, A0, ones) for s in strategies}
+    smp = samplers.prepare_mc_sampler(lam, psi, key=0, device=dev)
+    rows, samg_launches, samg_its = [], 0, 0
+    for ireal in range(nreal06):
+        smp, _ = samplers.draw(smp)
+        coeff = torch.exp(smp.g)
+        A, b = fem.do_isotropic_elliptic_assembly(asm, coeff)
+        bnorm = float(torch.linalg.vector_norm(b))
+        for s in strategies:
+            for mode in ("const", "rebuilt"):
+                M, build_ms = const[s] if mode == "const" else build(s, A,
+                                                                     coeff)
+                seen = []
+                sync()
+                t0 = time.perf_counter()
+                if s == "samg":
+                    Ak = St0.with_csr_data(A.data)
+                    bk = to_full_vector(maps, b, mesh.nnode)
+                    sk.stencil_spmv.launches = 0
+                    r = with_tf32_requested(lambda: refined_pcg(
+                        Ak, bk, M=probed(M, seen), **cert))
+                    sync()
+                    samg_launches += sk.stencil_spmv.launches
+                    samg_its += int(r.it)
+                    forms = {"host": r}
+                    tr = stencil_true_relres(Ak, bk, r.x_df32)
+                else:
+                    forms = {st: with_tf32_requested(
+                        lambda st=st: refined_pcg_sparse(
+                            A, b, M=probed(M, seen), single_trace=st,
+                            **cert)) for st in (True, False)}
+                    sync()
+                    r = forms[True]
+                    check(all(int(f.it) == int(r.it)
+                              and f.refines == r.refines
+                              and float(f.res_norm[0]) == float(r.res_norm[0])
+                              for f in forms.values()),
+                          f"ex06_certified {s}: the single_trace forms differ")
+                    tr = sparse_true_relres(A, b, r.x_df32)
+                solve_ms = 1e3 * (time.perf_counter() - t0) / len(forms)
+                check_certified(f"ex06_certified {s}_{mode} real {ireal}", r,
+                                tr, seen)
+                rows.append(dict(real=ireal, arm=f"{s}_{mode}", it=int(r.it),
+                                 refines=r.refines,
+                                 certified_relres=float(r.res_norm[0]) / bnorm,
+                                 true_relres=tr, build_ms=build_ms,
+                                 solve_ms=solve_ms, forms=len(forms)))
+        if ireal == 0:
+            # the same LORASC build on the randomized range finder (at
+            # n_Γ ≈ 1.5k "auto" takes the exact pairs)
+            sync()
+            t0 = time.perf_counter()
+            M_rand = lorasc(coeff, low_rank_correction="randomized")
+            sync()
+            rand_ms = 1e3 * (time.perf_counter() - t0)
+            seen = []
+            r = with_tf32_requested(lambda: refined_pcg_sparse(
+                A, b, M=probed(M_rand, seen), **cert))
+            check_certified("ex06_certified lorasc_randomized", r,
+                            sparse_true_relres(A, b, r.x_df32), seen)
+            it_rand = int(r.it)
+    check(samg_launches == samg_its,
+          f"ex06_certified: {samg_launches} launches of kernel A for the "
+          f"samg arm's {samg_its} inner iterations")
+    kernels["A"]["launches"] += samg_launches
+    it_of = {(row["real"], row["arm"]): row["it"] for row in rows}
+    emit("ex06_certified", nnode=mesh.nnode, ndom=ndom, n_gamma=n_gamma,
+         realizations=nreal06, rows=rows, lorasc_randomized=dict(
+             it=it_rand, it_exact=it_of[(0, "lorasc_rebuilt")],
+             build_ms=rand_ms),
+         rebuilt_below_const={s: [it_of[(i, f"{s}_rebuilt")]
+                                  <= it_of[(i, f"{s}_const")]
+                                  for i in range(nreal06)] for s in strategies},
+         kernel_a_launches_samg=samg_launches,
+         seconds=time.perf_counter() - t_phase, card=card)
+
+    # ---- ex07_certified (ex07_pcg_schur_stochastic.py:119-152) ----------------
+    t_phase = time.perf_counter()
+    Pnn0 = schur.prepare_neumann_neumann_schur_precond(S0)
+    pull = build_gamma_pullback(S0.gammad_to_gamma, S0.gmask, S0.n_gamma)
+    smp = samplers.prepare_mc_sampler(lam, psi, key=0, device=dev)
+    rows, repeat = [], None
+    for ireal in range(nreal07):
+        smp, _ = samplers.draw(smp)
+        blocks = fem.assemble_dd_values(plan, torch.exp(smp.g))
+        S = schur.prepare_schur_operator(plan, part, *blocks[:3])
+        Sd = schur.assemble_local_schurs(S)
+        inner = schur.assembled_schur_operator(S, Sd)
+        sync()
+        t0 = time.perf_counter()
+        arms = [("nn_const", Pnn0),
+                ("nn_rebuilt", schur.prepare_neumann_neumann_schur_precond(
+                    S, Sd=Sd)),
+                ("gamma_chol", partial(_dense_gamma_solve,
+                                       torch.linalg.cholesky(
+                                           assemble_gamma_matrix(S))))]
+        sync()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+
+        def solve(Mp, seen):
+            return with_tf32_requested(lambda: refined_dd_pcg(
+                plan, S, inner, blocks[3], blocks[4], *blocks[:3],
+                M=probed(Mp, seen), pull=pull, **cert))
+
+        for name, Mp in arms:
+            seen = []
+            sync()
+            t0 = time.perf_counter()
+            r = solve(Mp, seen)
+            sync()
+            solve_ms = 1e3 * (time.perf_counter() - t0)
+            tr = dd_true_relres(plan, S, blocks, r.u_I, r.x_df32)
+            check_certified(f"ex07_certified {name} real {ireal}", r, tr, seen)
+            rows.append(dict(real=ireal, arm=name, it=int(r.it),
+                             refines=r.refines,
+                             certified_relres=float(r.res_norm[0]) / r.bnorm,
+                             true_relres=tr, solve_ms=solve_ms,
+                             build_ms=build_ms if name != "nn_const" else 0.0))
+            if ireal == 0 and name == "nn_rebuilt":
+                again = solve(Mp, [])
+                same = (int(again.it) == int(r.it) and all(
+                    torch.equal(a, c) for a, c in zip(
+                        again.x_df32 + again.u_I, r.x_df32 + r.u_I)))
+                check(same, "ex07_certified: a certified DD solve run twice "
+                            "gave another it or other bits of x_df32")
+                repeat = dict(arm=name, it=int(again.it), bit_equal=same)
+    emit("ex07_certified", nnode=mesh.nnode, ndom=ndom, n_gamma=n_gamma,
+         realizations=nreal07, rows=rows, repeat=repeat,
+         rebuilt_below_const=[
+             rows[3 * i + 1]["it"] <= rows[3 * i]["it"] for i in range(nreal07)],
+         seconds=time.perf_counter() - t_phase, card=card)
+
+    # ---- ex09_certified (ex09_defpcg_mcmc.py:57-170) ---------------------------
+    t_phase = time.perf_counter()
+    nvec = int(1.25 * ndom)
+    spdim = max(3 * ndom, 2 * nvec + 1)
+    sync()
+    t0 = time.perf_counter()
+    M0 = prepare_lorasc_precond(S0, part, maps, nvec=nvec_lorasc,
+                                eps_threshold=0.01)
+    sync()
+    m0_ms = 1e3 * (time.perf_counter() - t0)
+    methods = ("pcg", "eigpcg", "eigdefpcg", "defpcg")
+    its = {m: [] for m in methods}
+    ranks = {m: [] for m in methods}
+    W = {m: None for m in methods}
+    smp = samplers.prepare_mcmc_sampler(lam, psi, key=0, device=dev)
+    rows = []
+    for s in range(nsmp):
+        if s > 0:
+            smp, _ = samplers.draw(smp)
+        A, b = fem.do_isotropic_elliptic_assembly(asm, torch.exp(smp.g))
+        bnorm = float(torch.linalg.vector_norm(b))
+        for m in methods:
+            seen = []
+            kw = dict(M=probed(M0, seen), maxit=EX09_MAXIT,
+                      rtol=CERT_INNER_RTOL)
+            if m == "eigpcg" or (m == "eigdefpcg" and W[m] is None):
+                first = lambda: eigpcg(A, b, nvec=nvec, spdim=spdim, **kw)  # noqa: E731
+            elif m == "eigdefpcg":
+                first = lambda: eigdefpcg(A, b, W=W[m], spdim=spdim, **kw)  # noqa: E731
+            elif m == "defpcg" and W["eigpcg"] is not None:
+                first = lambda: defpcg(A, b, W=W["eigpcg"], **kw)  # noqa: E731
+            else:
+                first = lambda: pcg(A, b, **kw)  # noqa: E731
+            sync()
+            t0 = time.perf_counter()
+            if m == "pcg":
+                r = with_tf32_requested(lambda: refined_pcg_sparse(
+                    A, b, M=kw["M"], inner_maxit=EX09_MAXIT, **cert))
+            else:
+                r = with_tf32_requested(lambda: refined_recycled_solve(
+                    A, b, first, M=kw["M"], inner_maxit=EX09_MAXIT, **cert))
+            sync()
+            solve_ms = 1e3 * (time.perf_counter() - t0)
+            tr = sparse_true_relres(A, b, r.x_df32)
+            check_certified(f"ex09_certified {m} sample {s}", r, tr, seen)
+            its[m].append(int(r.it))
+            if r.W is not None:
+                ranks[m].append(int(np.linalg.matrix_rank(
+                    r.W.double().cpu().numpy())))
+                W[m] = r.W
+            rows.append(dict(sample=s, method=m, it=int(r.it),
+                             refines=r.refines,
+                             certified_relres=float(r.res_norm[0]) / bnorm,
+                             true_relres=tr, solve_ms=solve_ms))
+    mean_pcg = float(np.mean(its["pcg"][1:]))
+    mean_eigdef = float(np.mean(its["eigdefpcg"][1:]))
+    check(mean_eigdef < mean_pcg,
+          f"ex09_certified: eigdefpcg's mean it {mean_eigdef} over samples "
+          f"2-{nsmp} is not below pcg's {mean_pcg}")
+    emit("ex09_certified", nnode=mesh.nnode, ndom=ndom, n_gamma=n_gamma,
+         samples=nsmp, nvec=nvec, spdim=spdim, m0="lorasc1",
+         m0_build_ms=m0_ms, its=its, rows=rows,
+         rank_W=ranks, rank_limit=0.9 * nvec,
+         mean_it_samples_2_on=dict(pcg=mean_pcg, eigdefpcg=mean_eigdef),
+         seconds=time.perf_counter() - t_phase, card=card)
+
+
+def run_precond_apply(card, dev="cuda", nnode=PA_NNODE, ndom=PA_NDOM):
+    """Each preconditioner built on `dev` in float32 and applied to one
+    seeded r, against the same construction on the CPU in float64 from the
+    same float64 inputs."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.fem import schur
+    from krylov_spdes_tpu_torch.ops.stencil import build_stencil_op
+    from krylov_spdes_tpu_torch.precond import (
+        amg_precond, block_jacobi_precond, chebyshev_precond, get_cholesky16,
+        get_cholesky32, prepare_ddlr_precond, prepare_lorasc_precond,
+        prepare_nn_induced_precond)
+    from krylov_spdes_tpu_torch.precond.stencil_amg import stencil_amg_precond
+    sync = synchronizer(dev)
+    t_phase = time.perf_counter()
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    mesh = fem.get_mesh(nnode)
+    maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    epart, _ = fem.mesh_partition(mesh.cells, mesh.points, ndom,
+                                  mesh.cell_neighbors, use_native=True)
+    part = fem.set_subdomains(mesh.cells, epart, maps, ndom)
+    cpu64 = dict(device="cpu", dtype=torch.float64)
+    card32 = dict(device=dev, dtype=torch.float32)
+    lam, psi = sine_basis(mesh.points)
+    xi = np.random.default_rng(0).normal(size=lam.shape[0])
+    coeff = np.exp(psi @ (np.sqrt(lam) * xi))        # one realization's field
+
+    def on_card(t):
+        if dataclasses.is_dataclass(t):
+            return dataclasses.replace(t, **{
+                f.name: on_card(getattr(t, f.name))
+                for f in dataclasses.fields(t) if f.init
+                and torch.is_tensor(getattr(t, f.name))})
+        return t.to(dev, torch.float32 if t.is_floating_point() else t.dtype)
+
+    # the float64 inputs, on the CPU; the card's are these rounded
+    asm = fem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps, f_src,
+                                        u_dir, **cpu64)
+    A64, _ = fem.do_isotropic_elliptic_assembly(asm, coeff)
+    A32 = on_card(A64)
+    m1 = int(round(np.sqrt(mesh.nnode)))
+    St64 = build_stencil_op(A64, maps, (m1, m1))
+    St32 = on_card(St64)
+    plans = {k: fem.prepare_dd_assembly(mesh.cells, mesh.points, epart, part,
+                                        maps, f_src, u_dir, **kw)
+             for k, kw in (("cpu", cpu64), ("card", card32))}
+    blocks64 = fem.assemble_dd_values(plans["cpu"], torch.as_tensor(coeff))
+    blocks32 = [on_card(b) for b in blocks64]
+    S64 = schur.prepare_schur_operator(plans["cpu"], part, *blocks64[:3])
+    S32 = schur.prepare_schur_operator(plans["card"], part, *blocks32[:3])
+    n_gamma = part.n_gamma
+    nvec = min(25, n_gamma // 2 or 1)
+    ell = int(ndom + 0.1 * n_gamma)
+    H0 = torch.randn(n_gamma, ell, generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64)
+    # Chebyshev's λmax(D⁻¹A), given to both builds (their power iterations
+    # would start from two generators' draws)
+    from scipy.sparse import diags
+    from scipy.sparse.linalg import eigsh
+    csr = A64.to_scipy()
+    dh = diags(1.0 / np.sqrt(csr.diagonal()))
+    lmax_est = float(eigsh(dh @ csr @ dh, k=1, which="LA")[0][0])
+
+    builds = {
+        "amg": (lambda A, St, S, bl, pl: amg_precond(A), "A"),
+        "stencil_amg": (lambda A, St, S, bl, pl: stencil_amg_precond(St),
+                        "St"),
+        "block_jacobi": (lambda A, St, S, bl, pl: block_jacobi_precond(
+            A, ndom), "A"),
+        "cholesky32": (lambda A, St, S, bl, pl: get_cholesky32(A), "A"),
+        "cholesky16": (lambda A, St, S, bl, pl: get_cholesky16(A), "A"),
+        "chebyshev": (lambda A, St, S, bl, pl: chebyshev_precond(
+            A, lmax_est=lmax_est), "A"),
+        "lorasc_exact": (lambda A, St, S, bl, pl: prepare_lorasc_precond(
+            S, part, maps, nvec=nvec, low_rank_correction="exact"), "A"),
+        "lorasc_randomized": (lambda A, St, S, bl, pl: prepare_lorasc_precond(
+            S, part, maps, nvec=nvec, low_rank_correction="randomized",
+            H0=H0), "A"),
+        "ddlr": (lambda A, St, S, bl, pl: prepare_ddlr_precond(
+            S, part, maps, bl[0], pl.imask, nvec=nvec), "A"),
+        "nn_induced": (lambda A, St, S, bl, pl: prepare_nn_induced_precond(
+            S, part, maps), "A"),
+    }
+    rng = np.random.default_rng(1)
+    r = {"A": torch.as_tensor(rng.normal(size=maps.n_free)),
+         "St": torch.as_tensor(rng.normal(size=mesh.nnode))}
+    rows = []
+    for name, (make, space) in builds.items():
+        t0 = time.perf_counter()
+        M64 = make(A64, St64, S64, blocks64, plans["cpu"])
+        z64 = M64(r[space])
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+        sync()
+        t0 = time.perf_counter()
+        M32 = make(A32, St32, S32, blocks32, plans["card"])
+        sync()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        z32 = M32(r[space].to(dev, torch.float32))
+        check(z32.device.type == dev and z32.dtype == torch.float32,
+              f"precond_apply {name}: z on {z32.device}, {z32.dtype}")
+        err = float(torch.linalg.vector_norm(z32.double().cpu() - z64)
+                    / torch.linalg.vector_norm(z64))
+        tol = PA_TOL.get(name, PA_TOL["float32"])
+        rows.append(dict(name=name, rel_diff=err, limit=tol,
+                         build_ms=build_ms,
+                         apply_ms=host_ms(lambda: M32(
+                             r[space].to(dev, torch.float32)))
+                         if dev == "cuda" else None,
+                         cpu_float64_ms=cpu_ms))
+    emit("precond_apply", nnode=mesh.nnode, ndom=ndom, n_gamma=n_gamma,
+         nvec=nvec, rows=rows, seconds=time.perf_counter() - t_phase,
+         card=card)
+    for row in rows:
+        check(row["rel_diff"] <= row["limit"],
+              f"precond_apply {row['name']}: relative difference "
+              f"{row['rel_diff']} to the float64 build above {row['limit']}")
 
 
 def run(card):
@@ -1722,7 +2231,7 @@ def run(card):
     run_chain_slice(card, mesh, plan, kernels)
     del plan, ps, St, A, asm
     torch.cuda.empty_cache()
-    run_dd_slice(card, mesh)
+    run_dd_slice(card, mesh, kernels)
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():

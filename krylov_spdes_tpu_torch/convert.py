@@ -197,3 +197,49 @@ def full_rows(ps: PaddedStencil, grids) -> np.ndarray:
     (k, n) numpy full-grid vectors, through the port's `unpad_vec`."""
     from .ops.fused_cg import unpad_vec
     return np.stack([_np(unpad_vec(ps, g)) for g in grids])
+
+
+def amg_hierarchy(levels, coarse_L, perm0=None, device=None, dtype=None):
+    """The port's AMG hierarchy (`precond/amg.py::amg_setup`'s dict) from the
+    JAX package's: its levels (dicts of SparseOps A, P, R, or their numpy
+    fields, and dinv) and the coarse Cholesky factor. A banded hierarchy
+    (perm0 set) has no counterpart until ops/banded.py is ported."""
+    if perm0 is not None:
+        raise NotImplementedError("banded AMG levels need ops/banded.py "
+                                  "(ROADMAP §1 item 16)")
+    device, dtype = resolve(device, dtype)
+
+    def op(a):
+        return sparse_op(**(a if isinstance(a, dict) else numpy_fields(a)),
+                         device=device, dtype=dtype)
+
+    return dict(levels=tuple(dict(A=op(lev["A"]), P=op(lev["P"]),
+                                  R=op(lev["R"]),
+                                  dinv=_val(lev["dinv"], device, dtype))
+                             for lev in levels),
+                coarse_L=_val(coarse_L, device, dtype), perm0=None)
+
+
+def lorasc_state(E, Sig, S, part, maps, LG):
+    """The port's LORASC apply on the port's SchurOperator S from the
+    correction pairs E (n_Γ, nev), weights Sig and dense A_ΓΓ Cholesky
+    factor LG of a JAX package build (the `E`, `Sig` and `gamma_solve`
+    arguments of its apply), in S's dtype and on its device."""
+    from functools import partial
+    from .precond.dd_preconds import _dense_gamma_solve, lorasc_from_state
+    dev, dt = S.A_IG.device, S.A_IG.dtype
+    return lorasc_from_state(S, part, maps,
+                             partial(_dense_gamma_solve, _val(LG, dev, dt)),
+                             _val(E, dev, dt), _val(Sig, dev, dt))
+
+
+def block_jacobi_plan(sel, blk, ii, jj, starts, sizes, nb, bmax, n,
+                      device=None):
+    """The port's BlockJacobiPlan from the numpy fields of the JAX
+    package's (`block_jacobi_plan(**numpy_fields(plan_j))`)."""
+    from .precond.block_jacobi import BlockJacobiPlan
+    device, _ = resolve(device)
+    return BlockJacobiPlan(sel=_idx(sel, device), blk=_idx(blk, device),
+                           ii=_idx(ii, device), jj=_idx(jj, device),
+                           starts=np.asarray(starts), sizes=np.asarray(sizes),
+                           nb=int(nb), bmax=int(bmax), n=int(n))

@@ -61,6 +61,17 @@ class SparseOp:
         out[self.rows, self.indices] = self.data
         return out
 
+    # -- host-side interop ---------------------------------------------------
+    def to_scipy(self):
+        """The scipy CSR matrix of the same values, indptr and indices (a
+        host copy; the setups of AMG, the banded Γ factor and block-Jacobi
+        start from it)."""
+        from scipy.sparse import csr_matrix
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        return csr_matrix((host(self.data), host(self.indices),
+                           host(self.indptr)),
+                          shape=(self.n_rows, self.n_cols))
+
 
 def ell_spmv(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
     """SpMV through the ELL view: two gathers + a k-axis reduction."""
@@ -70,6 +81,14 @@ def ell_spmv(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
     if x.ndim == 1:
         return torch.sum(d * xg, dim=1)
     return torch.einsum("nk,nkm->nm", d, xg)
+
+
+def csr_spmv(A: SparseOp, x: torch.Tensor) -> torch.Tensor:
+    """SpMV through the CSR view: the products, then one sum a row over the
+    sorted rows in a fixed order (the reference path; ELL is the default)."""
+    prod = A.data * x[A.indices]
+    return torch.segment_reduce(prod, "sum", lengths=torch.diff(A.indptr),
+                                unsafe=True)
 
 
 def build_sparse_op(rows: np.ndarray, cols: np.ndarray, n_rows: int,
@@ -106,3 +125,15 @@ def build_sparse_op(rows: np.ndarray, cols: np.ndarray, n_rows: int,
         ell_idx=t(ell_idx), ell_cols=t(ell_cols),
         n_rows=n_rows, n_cols=n_cols)
     return op, slot.astype(np.int64)
+
+
+def from_scipy(mat, dtype=None, device=None) -> SparseOp:
+    """A SparseOp from a scipy sparse matrix (host-side): duplicates summed
+    in float64, then cast to `dtype` on `device`."""
+    m = mat.tocoo()
+    op, slot = build_sparse_op(m.row, m.col, *m.shape, dtype=dtype,
+                               device=device)
+    data = np.zeros(op.nnz, dtype=np.float64)
+    np.add.at(data, slot, m.data)
+    return op.with_data(torch.as_tensor(data, dtype=op.data.dtype,
+                                        device=op.data.device))

@@ -5,4 +5,5 @@ from .cg import cg, pcg  # noqa: F401
 from .eigcg import eigcg, eigpcg  # noqa: F401
 from .defcg import defcg, defpcg, eigdefcg, eigdefpcg  # noqa: F401
 from .initcg import initcg, initpcg  # noqa: F401
-from .refine import refined_pcg  # noqa: F401
+from .refine import (refined_dd_pcg, refined_pcg,  # noqa: F401
+                     refined_pcg_sparse, refined_recycled_solve)

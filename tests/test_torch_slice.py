@@ -95,6 +95,27 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port (the measurement scripts under bench/ aside)
+    imports in a process where `import jax` fails, and none of them loads
+    the JAX package."""
+    code = (
+        "import sys, pkgutil, importlib;"
+        "sys.modules['jax'] = None;"
+        "import krylov_spdes_tpu_torch as p;"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "p.__name__ + '.') if '.bench' not in m.name];"
+        "[importlib.import_module(n) for n in names];"
+        "bad = [m for m in sys.modules if m == 'krylov_spdes_tpu'"
+        " or m.startswith('krylov_spdes_tpu.')];"
+        "assert not bad, bad;"
+        "assert len(names) > 40, names;"
+        "print(len(names))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_entry_point_without_device_does_not_run_on_cpu():
     if torch.cuda.is_available():
         pytest.skip("checks a host without a CUDA device")
