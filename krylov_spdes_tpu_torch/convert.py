@@ -243,3 +243,36 @@ def block_jacobi_plan(sel, blk, ii, jj, starts, sizes, nb, bmax, n,
                            ii=_idx(ii, device), jj=_idx(jj, device),
                            starts=np.asarray(starts), sizes=np.asarray(sizes),
                            nb=int(nb), bmax=int(bmax), n=int(n))
+
+
+def recycler(W, sample_idx=0, healthy=True, device=None, dtype=None):
+    """The port's Recycler from the numpy fields of the JAX package's
+    (`recycler(**numpy_fields(rec_j))`)."""
+    from .solvers.recycler_state import Recycler
+    return Recycler(W=deflation_basis(W, device, dtype),
+                    sample_idx=int(sample_idx), healthy=bool(healthy))
+
+
+def kl_subdomains(ndom, n_max, nodes, node_mask, n_nodes, centers, areas,
+                  M_local, cnt, device=None, dtype=None):
+    """The port's KLSubdomains from the numpy fields of the JAX package's:
+    host tables as numpy, the local mass matrices on `device`."""
+    from .kl.dd import KLSubdomains
+    device, dtype = resolve(device, dtype)
+    return KLSubdomains(ndom=int(ndom), n_max=int(n_max),
+                        nodes=np.asarray(nodes),
+                        node_mask=np.asarray(node_mask),
+                        n_nodes=np.asarray(n_nodes),
+                        centers=np.asarray(centers), areas=np.asarray(areas),
+                        M_local=_val(M_local, device, dtype),
+                        cnt=np.asarray(cnt))
+
+
+def kl_dom_tables(**fields):
+    """The port's KLDomTables (host tables, as in both packages) from the
+    numpy fields of the JAX package's."""
+    from .kl.dd_device import KLDomTables
+    return KLDomTables(**{f.name: (int(fields[f.name])
+                                   if f.name in ("ndom", "n_max", "nel_max")
+                                   else np.asarray(fields[f.name]))
+                          for f in dataclasses.fields(KLDomTables)})

@@ -123,9 +123,13 @@ def amg_setup(A_host: sp.spmatrix, max_levels: int = 10,
 
 
 def _vcycle(npre, npost, hier, omega, r):
+    """One V-cycle on r (n,) or on every column of a block r (n, k) at
+    once (the JAX package vmaps the single apply over the columns)."""
     levels = hier["levels"]
+    tail = [1] * (r.ndim - 1)
 
     def smooth(A, dinv, x, b, nsweep):
+        dinv = dinv.view(-1, *tail)
         for _ in range(nsweep):
             x = x + omega * dinv * (b - A(x))
         return x
@@ -133,8 +137,10 @@ def _vcycle(npre, npost, hier, omega, r):
     def down(level, b):
         if level == len(levels):
             L = hier["coarse_L"]
-            y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
-            return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
+            B = b.reshape(b.shape[0], -1)
+            y = torch.linalg.solve_triangular(L, B, upper=False)
+            return torch.linalg.solve_triangular(L.T, y,
+                                                 upper=True).reshape(b.shape)
         lev = levels[level]
         x = smooth(lev["A"], lev["dinv"], torch.zeros_like(b), b, npre)
         xc = down(level + 1, ell_spmv(lev["R"], b - lev["A"](x)))

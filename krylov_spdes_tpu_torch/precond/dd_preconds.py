@@ -36,6 +36,7 @@ from ..fem.bc import DirichletMaps
 from ..fem.dd import DDPartition
 from ..fem.schur import (SchurOperator, _masked_pinv, assemble_local_schurs,
                          gamma_sum, interior_solve)
+from ..kl.dd_device import _chol_qr2
 from ..solvers.base import f32_exact
 
 
@@ -147,20 +148,6 @@ def _schur_cols(S: SchurOperator, Y):
     t1 = S.A_GGd @ xd
     t2 = S.A_IG.transpose(-1, -2) @ interior_solve(S.A_II_L, S.A_IG @ xd)
     return _gamma_rows(S, (t1 - t2) * S.gmask[..., None])
-
-
-def _chol_qr2(Y):
-    """Batched CholeskyQR2 of tall-skinny Y (B, n, q): twice G = YᵀY,
-    Y ← Y chol(G)⁻ᵀ (a copy of the JAX package's kl/dd_device.py helper)."""
-    for _ in range(2):
-        G = Y.transpose(-1, -2) @ Y
-        eps = torch.finfo(Y.dtype).eps
-        tr = G.diagonal(dim1=-2, dim2=-1).sum(-1)
-        G = G + torch.eye(G.shape[-1], dtype=Y.dtype, device=Y.device) * (
-            eps * tr[..., None, None])
-        R = torch.linalg.cholesky(G)
-        Y = _solve_lower(R, Y.transpose(-1, -2)).transpose(-1, -2)
-    return Y
 
 
 @f32_exact

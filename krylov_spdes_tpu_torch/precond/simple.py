@@ -27,11 +27,14 @@ def jacobi_precond(A: SparseOp):
 
 
 def _diag_apply(dinv, r):
-    return dinv * r
+    """dinv ⊙ r for a vector r (n,) or each column of a block r (n, k)."""
+    return dinv.view(-1, *[1] * (r.ndim - 1)) * r
 
 
 def _cheby_apply(degree, A, dinv, lmin, lmax, r):
-    """Chebyshev iteration on the Jacobi-scaled operator, zero initial guess."""
+    """Chebyshev iteration on the Jacobi-scaled operator, zero initial guess,
+    on a vector r or on each column of a block r (n, k)."""
+    dinv = dinv.view(-1, *[1] * (r.ndim - 1))
     theta = (lmax + lmin) / 2.0
     delta = (lmax - lmin) / 2.0
     sigma1 = theta / delta

@@ -67,6 +67,19 @@ def as_precond_op(M) -> Callable:
     raise TypeError(f"cannot interpret {type(M)} as a preconditioner")
 
 
+def apply_block(fn, X):
+    """fn applied to every column of X (n, k) in one call, the port's form of
+    the JAX package's `jax.vmap(fn)`: the operators and preconditioners of
+    the port (SparseOp, dense tensors, jacobi_precond, amg_precond) take an
+    (n, k) block as well as a vector. A callable that does not is refused
+    rather than looped over k single applies."""
+    Y = fn(X)
+    if Y.shape != X.shape:
+        raise TypeError(f"{fn!r} does not take an (n, k) block: it returned "
+                        f"{tuple(Y.shape)} for {tuple(X.shape)}")
+    return Y
+
+
 @dataclasses.dataclass
 class SolveResult:
     """x: solution; it: number of recorded residual norms, matching the

@@ -13,9 +13,9 @@ so that one code path serves every rank and a leading batch axis:
   leading columns.
 - Columns >= nev of the results are zero.
 
-The generalized-pair variants of the JAX module (`ritz_basis_gen`,
-`thick_restart_basis_gen`) belong to the RR/HR recyclers and are not ported
-yet.
+The generalized-pair variants (`_masked_gen_eigvecs`, `ritz_basis_gen`,
+`thick_restart_basis_gen`) are the projections of the RR/HR recyclers
+(solvers/recyclers.py).
 """
 
 from __future__ import annotations
@@ -96,4 +96,77 @@ def thick_restart_basis(Tm, nvec: int, active_dim):
     vals, Z = torch.linalg.eigh(Hm)
     vals = vals * colmask
     QZ = (Q @ Z) * colmask[..., None, :]
+    return vals, QZ, nev
+
+
+def _masked_gen_eigvecs(S, T, k: int, active):
+    """First k generalized eigenvectors of (S, T) restricted to the active
+    block. T's active block must be SPD.
+
+    Masking: T gets identity on inactive coordinates (stays SPD), S gets a
+    BIG diagonal there so inactive pairs sort last under ascending eigh.
+    Returns (..., s, k) vectors supported on active coordinates. `active`
+    may carry a leading batch axis: every factorization then runs batched,
+    as in the JAX package (LO-TR's two masks are one call)."""
+    dtype = S.dtype
+    act = active.to(dtype)
+    actf = act[..., :, None]                             # (..., s, 1)
+    actr = actf * actf.transpose(-1, -2)                 # (..., s, s)
+    eye_in = torch.diag_embed(1.0 - act)
+    S0 = _sym(S) * actr
+    T0 = _sym(T) * actr + eye_in
+    S0 = S0 + (2.0 + _abs_sum(S0)) * eye_in
+    L = torch.linalg.cholesky(_spd_ridge(T0))
+    Y = torch.linalg.solve_triangular(L, S0, upper=False)
+    B = torch.linalg.solve_triangular(L, Y.transpose(-1, -2), upper=False)
+    _, U = torch.linalg.eigh(_sym(B))
+    V = torch.linalg.solve_triangular(L.transpose(-1, -2), U[..., :, :k],
+                                      upper=True)
+    return V * actf
+
+
+def ritz_basis_gen(S, T, nvec: int, active_dim: int):
+    """First nvec generalized Ritz vectors of (S, T) over the active block:
+    the single-basis RR/HR projection (rrdefpcg.jl:126-148,
+    hrdefpcg.jl:130-161). Returns coefs (s, nvec)."""
+    act = torch.arange(S.shape[-1], device=S.device) < active_dim
+    return _masked_gen_eigvecs(S, T, nvec, act)
+
+
+def thick_restart_basis_gen(S, T, nvec: int, active_dim: int):
+    """LO-TR restart: double generalized basis + rank-SVD merge
+    (lotrrrdefpcg.jl:167-182). Returns (vals, QZ, nev) like
+    `thick_restart_basis`, for a generalized pair (S, T).
+
+    The compressed nev-sized problem is itself generalized: the reference
+    solves eigen(QᵀSQ, QᵀTQ) (lotrhrdefpcg.jl:185-188). For the RR metric
+    T = I this reduces to the plain eigh(QᵀSQ) of lotrrrdefpcg.jl:172-174."""
+    s = S.shape[-1]
+    dtype, dev = S.dtype, S.device
+    i = torch.arange(s, device=dev)
+    act = i < active_dim
+    actf = act.to(dtype)
+    S0 = _sym(S) * actf[:, None] * actf[None, :]
+    T0 = _sym(T) * actf[:, None] * actf[None, :]
+
+    Yb = _masked_gen_eigvecs(S, T, nvec,
+                             torch.stack([act, i < active_dim - 1]))
+    Y = torch.cat([Yb[0], Yb[1]], dim=1)
+
+    U, sv, _ = torch.linalg.svd(Y, full_matrices=False)
+    nev = matrix_rank_tol(sv, s, 2 * nvec)
+    colmask = (torch.arange(2 * nvec, device=dev) < nev).to(dtype)
+    Q = U[:, :2 * nvec] * colmask[None, :]
+    H = Q.T @ S0 @ Q
+    Hm = _sym(H) + (2.0 + _abs_sum(H)) * torch.diag(1.0 - colmask)
+    # Q's rows are supported on active coordinates, so QᵀT0Q is exactly VᵀTV
+    # on the live columns; masked columns get identity to keep it SPD
+    Gm = _sym(Q.T @ T0 @ Q) + torch.diag(1.0 - colmask)
+    L = torch.linalg.cholesky(_spd_ridge(Gm))
+    B = torch.linalg.solve_triangular(L, Hm, upper=False)
+    B = torch.linalg.solve_triangular(L, B.T, upper=False)
+    vals, Zo = torch.linalg.eigh(_sym(B))
+    Z = torch.linalg.solve_triangular(L.T, Zo, upper=True)
+    vals = vals * colmask
+    QZ = (Q @ Z) * colmask[None, :]
     return vals, QZ, nev

@@ -1,8 +1,10 @@
 """PyTorch port, the KL front end (kl/) against the JAX package: covariance
 models, the mass matrix, the Galerkin covariance operator, the dense
-generalized eigenproblem with its truncation, and field synthesis. float64 on
-the CPU."""
+generalized eigenproblem with its truncation, LOBPCG on the dense operator
+and on the row-chunked matrix-free apply (kl/lobpcg.py), the resolution of
+method="auto", and field synthesis. float64 on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,24 +95,110 @@ def test_solve_kl_dense_matches_jax(nn, L, nev, relative):
     assert np.max(np.abs(Pj - Pt)) < 1e-6
 
 
-def test_solve_kl_unported_methods_raise():
-    """lobpcg and the chunked apply wait for the two-level KL; asking for
-    them, or for "auto" where it resolves to one of them, raises and never
-    quietly runs dense."""
-    mesh = get_mesh(1600, seed=0)
+def _lobpcg_x0(n, k):
+    """The JAX package's LOBPCG start block (PRNGKey(0)), handed over."""
+    return np.asarray(jax.random.normal(jax.random.PRNGKey(0), (n, k),
+                                        jnp.float64))
+
+
+def _m_cosines(Pa, Pb, Md):
+    def whiten(P):
+        L = np.linalg.cholesky(P.T @ Md @ P)
+        return np.linalg.solve(L, P.T).T
+    return np.linalg.svd(whiten(Pa).T @ Md @ whiten(Pb), compute_uv=False)
+
+
+@pytest.mark.parametrize("method,nn", [("lobpcg", 1800), ("chunked", 700)])
+def test_solve_kl_lobpcg_and_chunked_match_jax(method, nn):
+    """LOBPCG on the dense operator, and on the row-chunked matrix-free
+    apply, from the JAX package's own start block: the same kept count,
+    eigenvalues to 1e-10 and the M-span of the kept modes (cosines ≥
+    1 − 1e-8; tests/test_kl.py's test_lobpcg_matches_dense and
+    test_chunked_matches_lobpcg at their covariance)."""
+    mesh = get_mesh(nn, seed=5)
+    Mj = j_mass(mesh.cells, mesh.points)
     Mt = tfem.get_mass_matrix(mesh.cells, mesh.points, **CPU64)
-    cov = kl.make_cov("sexp", 1.0, 0.3)
-    for method in ("lobpcg", "chunked"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt, method=method)
-    # 1600 nodes, nev < n/8: "auto" resolves to lobpcg
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt)
-    with pytest.raises(ValueError):
-        kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt, method="arpack")
+    lam_j, psi_j = jsingle.solve_kl(mesh.cells, mesh.points,
+                                    jcov.make_cov("sexp", 1.0, 0.3), 25, Mj,
+                                    relative=0.999, method=method)
+    lam_t, psi_t = kl.solve_kl(mesh.cells, mesh.points,
+                               kl.make_cov("sexp", 1.0, 0.3), 25, Mt,
+                               relative=0.999, method=method,
+                               X0=_lobpcg_x0(mesh.nnode, 25 + 8))
+    lam_j, psi_j = np.asarray(lam_j), np.asarray(psi_j)
+    assert isinstance(lam_t, np.ndarray) and lam_t.shape == lam_j.shape
+    np.testing.assert_allclose(lam_t, lam_j, rtol=1e-10)
+    Md = Mt.todense().numpy()
+    assert _m_cosines(psi_t, psi_j, Md).min() > 1 - 1e-8
+    np.testing.assert_allclose(psi_t.T @ Md @ psi_t, np.eye(len(lam_t)),
+                               atol=1e-8)
 
 
-def test_auto_resolves_to_dense_on_a_small_mesh():
+def test_chunked_cov_apply_matches_jax():
+    """Ĉ Y in row chunks that do not divide n, on a block and on a vector,
+    against the JAX package's scan and against the dense Ĉ."""
+    rng = np.random.default_rng(4)
+    pts = rng.random((300, 2))
+    Y = rng.normal(size=(300, 5))
+    cj = jsingle.make_chunked_cov_apply(jcov.make_cov("exp", 1.2, 0.3), pts,
+                                        jnp.float64, chunk=64)
+    ct = kl.single.make_chunked_cov_apply(kl.make_cov("exp", 1.2, 0.3), pts,
+                                          torch.float64, chunk=64,
+                                          device="cpu")
+    dense = kl.cov_matrix(kl.make_cov("exp", 1.2, 0.3), _t(pts), _t(pts))
+    for y in (Y, Y[:, 0]):
+        out = ct(_t(y))
+        assert out.shape == y.shape
+        np.testing.assert_allclose(out.numpy(),
+                                   np.asarray(cj(jnp.asarray(y))),
+                                   rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(out.numpy(), (dense @ _t(y)).numpy(),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_lobpcg_generalized_matches_jax():
+    """The top eigenpairs of a dense pencil (C, M) from the same start
+    block: eigenvalues to 1e-10, vectors up to sign; from a generator the
+    start block is the generator's normal draw."""
+    from krylov_spdes_tpu.kl.lobpcg import lobpcg_generalized as j_lobpcg
+    rng = np.random.default_rng(2)
+    n, nev = 120, 6
+    Q = np.linalg.qr(rng.normal(size=(n, n)))[0]
+    C = Q @ np.diag(np.geomspace(1.0, 1e-6, n)) @ Q.T
+    B = rng.normal(size=(n, n)) / np.sqrt(n)
+    M = np.eye(n) + 0.1 * (B @ B.T)
+
+    def ct(X):
+        return _t(C) @ X
+
+    def mt(X):
+        return _t(M) @ X
+
+    from jax.tree_util import Partial
+    lj, Xj = j_lobpcg(Partial(jnp.matmul, jnp.asarray(C)),
+                      Partial(jnp.matmul, jnp.asarray(M)), n, nev, iters=30)
+    lt, Xt = kl.lobpcg_generalized(ct, mt, n, nev, iters=30,
+                                   X0=_lobpcg_x0(n, nev + 8), **CPU64)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=1e-10)
+    sign = np.sign(np.sum(Xt.numpy() * np.asarray(Xj), axis=0))
+    np.testing.assert_allclose(Xt.numpy() * sign, np.asarray(Xj), atol=1e-8)
+    a = kl.lobpcg_generalized(ct, mt, n, nev, iters=5, generator=torch.
+                              Generator(device="cpu").manual_seed(5), **CPU64)
+    X0 = torch.randn(n, nev + 8, generator=torch.Generator(
+        device="cpu").manual_seed(5), dtype=torch.float64)
+    b = kl.lobpcg_generalized(ct, mt, n, nev, iters=5, X0=X0, **CPU64)
+    np.testing.assert_array_equal(a[0].numpy(), b[0].numpy())
+
+
+class _Resolved(Exception):
+    pass
+
+
+def test_auto_resolves_to_dense_on_a_small_mesh(monkeypatch):
+    """"auto" resolves as in the JAX package (kl/single.py:102-104): dense
+    at 300 nodes; lobpcg at 1600 nodes with nev < n/8; chunked above 20k
+    nodes, in both packages (the chunked apply is stubbed to stop there).
+    An unknown method raises."""
     mesh = get_mesh(300, seed=2)
     Mt = tfem.get_mass_matrix(mesh.cells, mesh.points, **CPU64)
     cov = kl.make_cov("sexp", 1.0, 0.5)
@@ -119,6 +207,34 @@ def test_auto_resolves_to_dense_on_a_small_mesh():
                                method="dense")
     np.testing.assert_array_equal(lam_a, lam_d)
     np.testing.assert_array_equal(psi_a, psi_d)
+
+    mesh = get_mesh(1600, seed=0)
+    Mt = tfem.get_mass_matrix(mesh.cells, mesh.points, **CPU64)
+    cov = kl.make_cov("sexp", 1.0, 0.3)
+    X0 = _lobpcg_x0(mesh.nnode, 10 + 8)
+    lam_a, psi_a = kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt, X0=X0,
+                               lobpcg_iters=10)
+    lam_l, psi_l = kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt, X0=X0,
+                               lobpcg_iters=10, method="lobpcg")
+    np.testing.assert_array_equal(lam_a, lam_l)
+    np.testing.assert_array_equal(psi_a, psi_l)
+    with pytest.raises(ValueError):
+        kl.solve_kl(mesh.cells, mesh.points, cov, 10, Mt, method="arpack")
+
+    def stop(*a, **k):
+        raise _Resolved("chunked")
+
+    mesh = get_mesh(20500)
+    assert mesh.nnode > 20_000
+    monkeypatch.setattr(kl.single, "make_chunked_cov_apply", stop)
+    monkeypatch.setattr(jsingle, "make_chunked_cov_apply", stop)
+    with pytest.raises(_Resolved):
+        kl.solve_kl(mesh.cells, mesh.points, cov, 50,
+                    tfem.get_mass_matrix(mesh.cells, mesh.points, **CPU64))
+    with pytest.raises(_Resolved):
+        jsingle.solve_kl(mesh.cells, mesh.points,
+                         jcov.make_cov("sexp", 1.0, 0.3), 50,
+                         j_mass(mesh.cells, mesh.points))
 
 
 def test_synthesis_roundtrip_and_jax_parity():

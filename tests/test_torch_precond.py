@@ -205,3 +205,21 @@ def test_chebyshev_estimates_lmax_with_its_generator(system):
     z0 = Mt(torch.as_tensor(r))
     z1 = tsimple.chebyshev_precond(At)(torch.as_tensor(r))
     np.testing.assert_array_equal(z0.numpy(), z1.numpy())
+
+
+@pytest.mark.parametrize("name", ["amg", "jacobi", "chebyshev"])
+def test_block_apply_equals_column_applies(system, name):
+    """A preconditioner applied to an (n, k) block equals its applies to the
+    columns one by one (1e-12): the port's form of the JAX package's vmap
+    over columns, which the HR recyclers' M(AV) and block_pcg's M(R) use.
+    The AMG V-cycle's coarse solve takes the whole block."""
+    _, At, _, r = system
+    M = {"amg": lambda: tamg.amg_precond(At),
+         "jacobi": lambda: tsimple.jacobi_precond(At),
+         "chebyshev": lambda: tsimple.chebyshev_precond(At, lmax_est=2.0)}[
+        name]()
+    R = torch.tensor(np.random.default_rng(9).normal(size=(r.shape[0], 7)))
+    Y = M(R)
+    cols = torch.stack([M(R[:, j].contiguous()) for j in range(7)], dim=1)
+    assert Y.shape == R.shape
+    assert _rel(Y.numpy(), cols.numpy()) <= 1e-12
