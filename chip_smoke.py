@@ -2,8 +2,10 @@
 """Drive the PyTorch port on one NVIDIA GPU: the stencil solve path, the
 recycled MCMC chain, the Schur-DD flagship chain, the certified
 preconditioned solves of Examples 06, 07 and 09, the KL basis (single-domain
-and two-level), Example 11's multiple right-hand sides and Example 17's
-certified recyclers.
+and two-level), Example 11's multiple right-hand sides, Example 17's
+certified recyclers, the quantized preconditioner banks of Examples 13, 14,
+19 and 20, the unstructured path (Delaunay mesh, RCM-banded operator,
+banded AMG, banded DD interiors) and utils.
 
     python3 chip_smoke.py
 
@@ -31,7 +33,15 @@ computes build_kl's KL basis itself (examples/common.py:82-125: SExp,
 subdomains; the two-level one also at the 128k preset, get_mesh(128000) in
 213), drives Example 11's multiple right-hand sides (8) and Example 17's
 certified serial arm on the float32 basis: one MCMC chain of 3 samples of
-the protocol's 100 (a cut for the run's length), nvec 30, spdim 90.
+the protocol's 100 (a cut for the run's length), nvec 30, spdim 90. On the
+same mesh and float32 basis, Example 20 runs 8 realizations where its
+default runs 20, and Example 14 one where it runs 20 (cuts for the run's
+length); Example 19 runs on the first draw, as the example does. The
+unstructured phases run bench_banded.py's system at its full size
+(get_delaunay_mesh(32000, seed=0), κ = exp(0.4·N(0,1)) from numpy seed 0,
+Jacobi-PCG at rtol 1e-6, maxit 500) and Example 07's banded-interiors arm
+on that mesh in 30 subdomains with the 25 sine modes on 2 realizations
+(the example runs 20); utils' chain runs 4 steps on the chain phase's plan.
 
 Phases:
   1. build      nvcc build time; the card's name and power limit
@@ -182,6 +192,44 @@ Phases:
                 variants once on sample 1, their W deflating sample 2 to
                 fewer than pcg's it + 2. Per sample and method: it,
                 refines, ms, projections and ms a projection, LO-TR's nev
+ 12d. quantized_bank   on dd_general's mesh and kl_protocol's float32
+                basis: Example 20 (the k-means codebook of
+                get_quantizer(4000, 16, λ[:4]) from a seeded generator, 16
+                preconditioners through get_banded_cholesky, 8 MC
+                realizations through pcg with select_nearest beside
+                Jacobi-PCG, rtol 1e-5); Example 19's truncated-KL arm on the
+                first draw at ks 0, 1, 2, 4, 8, 16 with get_banded_cholesky
+                and amg_precond; Example 14's Shepard preconditioner (P 6)
+                against the nearest one on that draw; Example 13's CLVQ
+                against k-means (ns 20000, P 16, nKL 4). Every count finite
+                and below maxit, held to QB_ENVELOPE (from the same pipeline
+                in float64 on the CPU at 4k nodes); bank build seconds and
+                bytes
+ 12e. unstructured   bench_banded.py's system: Jacobi-PCG through the ELL
+                SparseOp and through banded_system (median of 3), `it`
+                within 5%, the unpermuted banded x within 1e-3 of the ELL x
+                and its float64 true residual within twice the ELL solve's;
+                one banded and one ELL matvec (CUDA events) beside the
+                banded matvec's byte bound (2·nb·m²·4 B over 3.35 TB/s);
+                amg_precond(A, matvec="banded") against amg_precond(A) (the
+                same hierarchy): one V-cycle within 1e-4, PCG `it` within 2,
+                setup seconds and ms an apply; Example 01's --op banded arm
+                (banded AMG built on the permuted A, the permuted system)
+     unstructured_dd   the same mesh in 30 subdomains (the C++
+                partitioner): per realization (a) dense interiors, (b)
+                prepare_schur_operator_banded from the dense blocks, (c)
+                assemble_dd_values_banded -> the refilled operator; Schur
+                applies within 1e-4, NN-PCG `it` (rtol 1e-5) within 2, (b)
+                certified at 1e-7 through refined_dd_pcg (float64 residual
+                computed apart, TF32 off inside), one certified solve twice
+                bit-equal; refill, factorisation and condensation ms, peak
+                memory of (a)'s and (c)'s refill and factorisation
+     utils      save_system/load_system of the unstructured system bit for
+                bit; a 4-step chain on the chain phase's 250k plan,
+                checkpointed after step 2 and resumed from the file with
+                the same `it` and a bit-equal W; condition_estimate of
+                Jacobi and of banded AMG (κ(AMG) < κ(Jacobi)); the
+                PhaseMetrics line of the slice-9 phases (its keys t_<phase>)
  13. kernels    one {"kernels": [...]} line with each kernel's launches on
                 its main path (all must be > 0; A's count includes the samg arm of
                 ex06_certified, printed there on its own) and its times
@@ -253,6 +301,28 @@ KL_ARCHIVE_128K = "SExp_sig21.0_L0.1_DoF128000.seed0.kl50.dd.npz"
 # protocol's 100)
 EXTRA_NRHS, EXTRA_RTOL, LANCZOS_GHOST = 8, 1e-5, 1e-3
 EX17_SAMPLES, EX17_MAXIT = 3, 2000
+# slice 9. unstructured: bench_banded.py's system (get_delaunay_mesh(32000),
+# κ = exp(0.4·N(0,1)) from numpy seed 0, Jacobi-PCG at rtol 1e-6, maxit
+# 500); unstructured_dd: the same mesh in DD_NDOM subdomains, 2 realizations;
+# quantized_bank: Example 20 (P 16 over 4 KL modes, 8 realizations),
+# Example 19's ks, Example 14's P 6, Example 13's ns 20000, solves at the
+# float32 chain tolerance; the envelopes of its counts come from the same
+# pipeline in float64 on the CPU at 4k nodes; utils:
+# Lanczos steps of condition_estimate
+UN_NNODE, UN_SIGMA, UN_RTOL, UN_MAXIT = 32000, 0.4, 1e-6, 500
+UN_X_TOL, UN_DD_REALIZATIONS = 1e-3, 2
+QB_P, QB_NKL, QB_P14, QB_REALIZATIONS, QB_NS13 = 16, 4, 6, 8, 20000
+QB_KS, QB_RTOL, QB_MAXIT = (0, 1, 2, 4, 8, 16), 1e-5, 3000
+# the float64 4k run's counts on the CPU (krylov_spdes_tpu_torch/bench/
+# bank_envelope.py): ex20 54-85 (Jacobi 163-196), ex19
+# banded Cholesky 32-68 and AMG 47-97 over ks, it(16) below it(0) for both,
+# ex14 Shepard 59 against nearest 61, ex13 CLVQ/k-means distortion 1.10; a
+# count on the card must lie within half the least and twice the largest
+QB_ENVELOPE = {"ex20_it": (27, 170), "ex19_banded_cholesky_it": (16, 136),
+               "ex19_amg_it": (23, 194), "ex14_shepard_over_nearest": 1.5,
+               "ex13_clvq_over_kmeans": 1.5}
+UT_LANCZOS = 60
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 L2_BYTES = 50e6
@@ -1290,9 +1360,11 @@ def dd_chain(card, phase, plan, part, state, nvec, spdim, maxit, warm, steps):
     return state, W, before, step
 
 
-def run_dd_slice(card, mesh250, kernels, dev="cuda"):
+def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
     """The Schur-DD flagship chain: DD refill -> condensation ->
-    Neumann-Neumann -> recycled eigDef-PCG on Γ, single and batched."""
+    Neumann-Neumann -> recycled eigDef-PCG on Γ, single and batched; then
+    the phases on dd_general's plan and mesh (certified, slice 8's,
+    quantized_bank)."""
     from krylov_spdes_tpu_torch import chains, dd_chains, entry, fem
     from krylov_spdes_tpu_torch.fem import dd_stencil, schur
     from krylov_spdes_tpu_torch.samplers import samplers
@@ -1492,7 +1564,10 @@ def run_dd_slice(card, mesh250, kernels, dev="cuda"):
     run_certified_slice(card, mesh, maps, part_g, plan_g, lam, psi, kernels)
     del plan_g, part_g
     torch.cuda.empty_cache()
-    run_slice8(card, mesh, maps, ndom)
+    lam32, psi32 = run_slice8(card, mesh, maps, ndom)
+    run_quantized_bank(card, metrics, mesh, maps, lam32, psi32)
+    del lam32, psi32
+    torch.cuda.empty_cache()
     run_precond_apply(card)
     sync()
     t0 = time.perf_counter()
@@ -2419,13 +2494,14 @@ def run_ex17_certified(card, mesh, maps, lam, psi, ndom, dev="cuda",
 
 def run_slice8(card, mesh, maps, ndom, dev="cuda"):
     """kl_protocol, kl_dd, solvers_extra and ex17_certified on the mesh and
-    maps of dd_general."""
+    maps of dd_general. Returns kl_protocol's float32 basis (λ, ψ)."""
     lam32, psi32, lam64 = run_kl_protocol(card, mesh, dev)
     run_kl_dd(card, mesh, lam64, dev)
     if dev == "cuda":
         torch.cuda.empty_cache()
     run_solvers_extra(card, mesh, maps, lam32, psi32, dev)
     run_ex17_certified(card, mesh, maps, lam32, psi32, ndom, dev)
+    return lam32, psi32
 
 
 def run_precond_apply(card, dev="cuda", nnode=PA_NNODE, ndom=PA_NDOM):
@@ -2546,6 +2622,526 @@ def run_precond_apply(card, dev="cuda", nnode=PA_NNODE, ndom=PA_NDOM):
               f"{row['rel_diff']} to the float64 build above {row['limit']}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the unstructured path (Delaunay mesh, RCM-banded operator, banded
+# AMG, banded DD interiors), the quantized preconditioner banks and utils
+# ---------------------------------------------------------------------------
+
+def wall_ms(fn, reps, dev):
+    """Milliseconds a call of fn(): CUDA events on the card (cuda_ms), the
+    host clock elsewhere."""
+    if dev == "cuda":
+        return cuda_ms(fn, reps)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def median_solve(solve, sync, reps=3):
+    """(result, median ms) of `reps` timed runs after one untimed run, the
+    device synchronised before every timer read."""
+    out = solve()
+    ts = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        out = solve()
+        sync()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return out, float(np.median(ts))
+
+
+def relres64(A, b, x):
+    """Float64 true relative residual of an unpaired solution x."""
+    return sparse_true_relres(A, b, (x, torch.zeros_like(x)))
+
+
+def run_unstructured(card, metrics, dev="cuda", nnode=UN_NNODE):
+    """unstructured: bench_banded.py's system, Jacobi-PCG through the ELL
+    SparseOp and through banded_system; one matvec of each; banded against
+    ELL AMG (the same hierarchy) and Example 01's --op banded arm (AMG with
+    banded levels built on the permuted matrix). Returns the system for the
+    utils phase."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.ops.banded import banded_system
+    from krylov_spdes_tpu_torch.ops.sparse import from_scipy
+    from krylov_spdes_tpu_torch.precond import amg_precond, sparse_diagonal
+    from krylov_spdes_tpu_torch.solvers import pcg
+    sync = synchronizer(dev)
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    with metrics.phase("unstructured", verbose=False):
+        t0 = time.perf_counter()
+        mesh = fem.get_delaunay_mesh(nnode, seed=0)
+        maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+        asm = fem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps,
+                                            f_src, u_dir, device=dev)
+        kappa = np.exp(UN_SIGMA * np.random.default_rng(0).normal(
+            size=mesh.nnode))
+        A, b = fem.do_isotropic_elliptic_assembly(asm, kappa)
+        sync()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Aop, bp, unperm, op = banded_system(A, b)
+        sync()
+        banded_s = time.perf_counter() - t0
+        check(op.D.device.type == dev and op.D.dtype == A.data.dtype,
+              "unstructured: the banded operator lives beside A")
+        dinv = 1.0 / sparse_diagonal(A)
+        dinv_p = dinv[op.perm]
+        opts = dict(maxit=UN_MAXIT, rtol=UN_RTOL)
+        r_ell, ms_ell = median_solve(
+            lambda: pcg(A, b, M=lambda r: dinv * r, **opts), sync)
+        r_band, ms_band = median_solve(
+            lambda: pcg(Aop, bp, M=lambda r: dinv_p * r, **opts), sync)
+        it_e, it_b = int(r_ell.it), int(r_band.it)
+        x_e, x_b = r_ell.x, unperm(r_band.x)
+        tr_e, tr_b = relres64(A, b, x_e), relres64(A, b, x_b)
+        check(abs(it_b - it_e) <= 0.05 * max(it_e, it_b),
+              f"unstructured: banded it {it_b} / ELL it {it_e} beyond 5%")
+        check(tr_b <= 2 * tr_e, f"unstructured: banded true residual {tr_b} "
+                                f"/ ELL {tr_e}")
+        x_diff = rel(x_b, x_e)
+        check(x_diff <= UN_X_TOL,
+              f"unstructured: banded x {x_diff} from the ELL x")
+        xr = torch.randn(A.n_rows, generator=torch.Generator(
+            device=dev).manual_seed(1), dtype=b.dtype, device=dev)
+        mv_band = wall_ms(lambda: op(xr), 50, dev)
+        mv_ell = wall_ms(lambda: A(xr), 50, dev)
+        mv_bound, mv_by = bound_ms(2 * op.nb * op.m * op.m * 4, 0)
+
+        # AMG: the banded V-cycle against the ELL one on the same hierarchy
+        t0 = time.perf_counter()
+        M_ell = amg_precond(A)
+        sync()
+        setup_ell = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        M_band = amg_precond(A, matvec="banded")
+        sync()
+        setup_band = time.perf_counter() - t0
+        r0 = torch.randn(A.n_rows, generator=torch.Generator(
+            device=dev).manual_seed(2), dtype=b.dtype, device=dev)
+        v_diff = rel(M_band(r0), M_ell(r0))
+        check(v_diff <= 1e-4, f"unstructured: banded V-cycle {v_diff} from "
+                              "the ELL V-cycle")
+        apply_ell = wall_ms(lambda: M_ell(r0), 10, dev)
+        apply_band = wall_ms(lambda: M_band(r0), 10, dev)
+        ra_e, msa_e = median_solve(lambda: pcg(A, b, M=M_ell, **opts), sync,
+                                   reps=1)
+        ra_b, msa_b = median_solve(lambda: pcg(A, b, M=M_band, **opts), sync,
+                                   reps=1)
+        check(abs(int(ra_e.it) - int(ra_b.it)) <= 2,
+              f"unstructured: AMG-PCG it {int(ra_e.it)} (ELL) / "
+              f"{int(ra_b.it)} (banded)")
+        # Example 01's --op banded arm: the hierarchy of the permuted matrix
+        perm = op.perm.cpu().numpy()
+        t0 = time.perf_counter()
+        M_perm = amg_precond(from_scipy(
+            A.to_scipy()[perm][:, perm].sorted_indices(), device=dev),
+            matvec="banded")
+        sync()
+        setup_perm = time.perf_counter() - t0
+        r_ex01, ms_ex01 = median_solve(lambda: pcg(Aop, bp, M=M_perm, **opts),
+                                       sync, reps=1)
+        tr_ex01 = relres64(A, b, unperm(r_ex01.x))
+        tr_amg = relres64(A, b, ra_e.x)
+        check(int(r_ex01.it) < UN_MAXIT and tr_ex01 <= 2 * max(tr_amg, tr_e),
+              f"unstructured ex01 arm: it {int(r_ex01.it)}, true residual "
+              f"{tr_ex01} / ELL AMG-PCG {tr_amg}")
+    emit("unstructured", nnode=mesh.nnode, nnz=A.nnz, sigma=UN_SIGMA,
+         rtol=UN_RTOL, maxit=UN_MAXIT, m=op.m, nb=op.nb,
+         blocks_mb=2 * op.nb * op.m * op.m * 4 / 1e6,
+         setup_s=setup_s, banded_system_s=banded_s,
+         jacobi_pcg=dict(it_ell=it_e, it_banded=it_b, ms_ell=ms_ell,
+                         ms_banded=ms_band,
+                         us_per_it_ell=1e3 * ms_ell / max(it_e - 1, 1),
+                         us_per_it_banded=1e3 * ms_band / max(it_b - 1, 1),
+                         true_relres_ell=tr_e, true_relres_banded=tr_b,
+                         x_rel_diff=x_diff),
+         matvec=dict(ms_banded=mv_band, ms_ell=mv_ell,
+                     bound_ms_banded=mv_bound, bound_by=mv_by,
+                     banded_over_ell=mv_band / mv_ell, timing="events"),
+         amg=dict(setup_s_ell=setup_ell, setup_s_banded=setup_band,
+                  vcycle_rel_diff=v_diff, ms_apply_ell=apply_ell,
+                  ms_apply_banded=apply_band, it_ell=int(ra_e.it),
+                  it_banded=int(ra_b.it), ms_solve_ell=msa_e,
+                  ms_solve_banded=msa_b, true_relres_ell=tr_amg),
+         ex01_banded=dict(setup_s=setup_perm, it=int(r_ex01.it),
+                          ms=ms_ex01, true_relres=tr_ex01),
+         card=card)
+    return dict(A=A, b=b, M_band=M_band, dinv=dinv)
+
+
+def run_unstructured_dd(card, metrics, dev="cuda", nnode=UN_NNODE,
+                        ndom=DD_NDOM, nreal=UN_DD_REALIZATIONS):
+    """unstructured_dd: Example 07's --mesh delaunay --interiors banded
+    --certify arm on the Delaunay mesh in ndom subdomains: per realization
+    (a) dense interiors, (b) banded interiors from the dense blocks, (c) the
+    direct banded refill; applies, NN-PCG counts, (b) certified at 1e-7,
+    one certified solve twice, stage times and peak memory."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.fem import dd_banded as db
+    from krylov_spdes_tpu_torch.fem import schur
+    from krylov_spdes_tpu_torch.ops.df32 import build_gamma_pullback
+    from krylov_spdes_tpu_torch.samplers import samplers
+    from krylov_spdes_tpu_torch.solvers import pcg, refined_dd_pcg
+    sync = synchronizer(dev)
+    on_card = dev == "cuda"
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    cert = dict(rtol=CERT_RTOL, inner_rtol=CERT_INNER_RTOL,
+                inner_maxit=DD_MAXIT)
+
+    def stage(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def peak(fn):
+        """fn()'s result and the device memory it took at its peak (GB),
+        above what was allocated before it."""
+        if not on_card:
+            return fn(), None
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        sync()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    with metrics.phase("unstructured_dd", verbose=False):
+        t0 = time.perf_counter()
+        mesh = fem.get_delaunay_mesh(nnode, seed=0)
+        maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+        epart, _ = fem.mesh_partition(mesh.cells, mesh.points, ndom,
+                                      mesh.cell_neighbors, use_native=True)
+        part = fem.set_subdomains(mesh.cells, epart, maps, ndom)
+        plan = fem.prepare_dd_assembly(mesh.cells, mesh.points, epart, part,
+                                       maps, f_src, u_dir, device=dev)
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tab = db.prepare_banded_interiors(mesh.cells, part, plan)
+        bplan = db.prepare_banded_dd_refill(plan, part, tab)
+        tables_s = time.perf_counter() - t0
+        lam, psi = sine_basis(mesh.points)
+        smp = samplers.prepare_mc_sampler(lam, psi, key=0, device=dev)
+        xg = torch.randn(part.n_gamma, generator=torch.Generator(
+            device=dev).manual_seed(3), dtype=plan.kflat.dtype, device=dev)
+        rows, repeat, pull = [], None, None
+        for ireal in range(nreal):
+            smp, _ = samplers.draw(smp)
+            coeff = torch.exp(smp.g)
+            ops = {}
+
+            def dense():
+                bl, t_refill = stage(lambda: fem.assemble_dd_values(plan,
+                                                                    coeff))
+                S, t_fac = stage(lambda: schur.prepare_schur_operator(
+                    plan, part, *bl[:3]))
+                return bl, S, t_refill, t_fac
+
+            def banded_refill():
+                out, t_refill = stage(lambda: db.assemble_dd_values_banded(
+                    plan, bplan, coeff))
+                S, t_fac = stage(
+                    lambda: db.prepare_schur_operator_banded_refill(
+                        plan, part, *out[:4], tab))
+                return out, S, t_refill, t_fac
+
+            (blocks, ops["a"], refill_a, fac_a), mem_a = peak(dense)
+            ops["b"], fac_b = stage(lambda: db.prepare_schur_operator_banded(
+                plan, part, *blocks[:3], tab))
+            (out_c, ops["c"], refill_c, fac_c), mem_c = peak(banded_refill)
+            ms = dict(refill_a=refill_a, factor_a=fac_a, refill_b=refill_a,
+                      factor_b=fac_b, refill_c=refill_c, factor_c=fac_c)
+            rhs = {"a": blocks[3:], "b": blocks[3:], "c": out_c[4:]}
+            y = {k: S(xg) for k, S in ops.items()}
+            apply_diff = {k: rel(y[k], y["a"]) for k in "bc"}
+            check(max(apply_diff.values()) <= 1e-4,
+                  f"unstructured_dd real {ireal}: Schur applies "
+                  f"{apply_diff} from the dense operator's")
+            its, Sds = {}, {}
+            for k, S in ops.items():
+                (Sd, b_s), ms[f"condense_{k}"] = stage(lambda: (
+                    schur.assemble_local_schurs(S),
+                    schur.get_schur_rhs(S, *rhs[k])))
+                Sds[k] = Sd
+                r = pcg(S, b_s, M=schur.prepare_neumann_neumann_schur_precond(
+                    S, Sd=Sd), rtol=CERT_INNER_RTOL, maxit=DD_MAXIT)
+                its[k] = int(r.it)
+            check(max(its.values()) < DD_MAXIT
+                  and max(its.values()) - min(its.values()) <= 2,
+                  f"unstructured_dd real {ireal}: NN-PCG its {its}")
+            # (b) certified through refined_dd_pcg on its assembled Sd
+            Sb = ops["b"]
+            if pull is None:
+                pull = build_gamma_pullback(Sb.gammad_to_gamma, Sb.gmask,
+                                            Sb.n_gamma)
+            inner = schur.assembled_schur_operator(Sb, Sds["b"])
+            Mnn = schur.prepare_neumann_neumann_schur_precond(Sb, Sd=Sds["b"])
+
+            def solve(seen):
+                return with_tf32_requested(lambda: refined_dd_pcg(
+                    plan, Sb, inner, blocks[3], blocks[4], *blocks[:3],
+                    M=probed(Mnn, seen), pull=pull, **cert))
+
+            seen = []
+            r, cert_ms = stage(lambda: solve(seen))
+            tr = dd_true_relres(plan, Sb, blocks, r.u_I, r.x_df32)
+            check_certified(f"unstructured_dd real {ireal}", r, tr, seen)
+            if ireal == 0:
+                again = solve([])
+                same = (int(again.it) == int(r.it) and all(
+                    torch.equal(a, c) for a, c in zip(
+                        again.x_df32 + again.u_I, r.x_df32 + r.u_I)))
+                check(same, "unstructured_dd: a certified banded solve run "
+                            "twice gave another it or other bits")
+                repeat = dict(it=int(again.it), bit_equal=same)
+            rows.append(dict(real=ireal, nn_pcg_it=its,
+                             schur_apply_rel_diff=apply_diff, ms=ms,
+                             peak_gb_refill_factor_dense=mem_a,
+                             peak_gb_refill_factor_banded_refill=mem_c,
+                             certified=dict(it=int(r.it), refines=r.refines,
+                                            certified_relres=float(
+                                                r.res_norm[0]) / r.bnorm,
+                                            true_relres=tr, ms=cert_ms)))
+            del ops, blocks, out_c, Sds, inner, Mnn, Sb
+    emit("unstructured_dd", nnode=mesh.nnode, ndom=ndom, nI=plan.nI,
+         nG=plan.nG, n_gamma=part.n_gamma, m=tab.m, nb=tab.nb,
+         bandwidths=tab.bw.tolist(), setup_s=setup_s, tables_s=tables_s,
+         realizations=nreal, rows=rows, repeat=repeat,
+         basis="25 sine modes (sine_basis) in place of the KL basis",
+         card=card)
+
+
+def bank_bytes(bank):
+    """Bytes of the block factors (L, G) a banded-Cholesky bank holds."""
+    return sum(nbytes(M.args[3]) + nbytes(M.args[4]) for M in bank)
+
+
+def run_quantized_bank(card, metrics, mesh, maps, lam, psi, dev="cuda",
+                       nreal=QB_REALIZATIONS, ns13=QB_NS13):
+    """quantized_bank: Example 20 with get_quantizer's k-means codebook over
+    the first QB_NKL modes and a bank of QB_P banded-Cholesky
+    preconditioners (--factor banded), nreal MC realizations through pcg
+    with select_nearest beside Jacobi-PCG; Example 19's truncated-KL arm on
+    the first draw with get_banded_cholesky and amg_precond; Example 14's
+    Shepard preconditioner (P 6) on the same draw; Example 13's CLVQ against
+    k-means (ns13 samples, P QB_P, QB_NKL modes)."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.config import resolve
+    from krylov_spdes_tpu_torch.precond import amg_precond, sparse_diagonal
+    from krylov_spdes_tpu_torch.precond.block_tridiag_chol import \
+        get_banded_cholesky
+    from krylov_spdes_tpu_torch.quantization import (
+        build_centroidal_preconds, clvq, distortion, get_gain_sequence,
+        get_quantizer, kmeans, select_nearest, shepard_interpolating_precond,
+        truncated_kl_precond)
+    from krylov_spdes_tpu_torch.samplers import samplers
+    from krylov_spdes_tpu_torch.solvers import pcg
+    sync = synchronizer(dev)
+    f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
+    u_dir = lambda x, y: 0.0 * x          # noqa: E731
+    opts = dict(maxit=QB_MAXIT, rtol=QB_RTOL)
+
+    def timed_s(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    with metrics.phase("quantized_bank", verbose=False):
+        asm = fem.prepare_elliptic_assembly(mesh.cells, mesh.points, maps,
+                                            f_src, u_dir, device=dev)
+        _, dt = resolve(dev)
+        lam_t = torch.as_tensor(lam, dtype=dt, device=dev)
+        psi_t = torch.as_tensor(psi, dtype=dt, device=dev)
+
+        def assemble(c):
+            return fem.do_isotropic_elliptic_assembly(asm, c)[0]
+
+        factor = partial(get_banded_cholesky, dtype=dt, out_dtype=dt,
+                         device=dev)
+        gen = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+
+        # Example 20: the codebook, the bank, nearest selection
+        k = min(QB_NKL, len(lam))
+        _, cb, _, _ = get_quantizer(4000, QB_P, lam_t[:k], generator=gen(0),
+                                    device=dev, dtype=dt)
+        full_cb = torch.zeros(QB_P, len(lam), dtype=dt, device=dev)
+        full_cb[:, :k] = cb
+        bank, build_s = timed_s(lambda: build_centroidal_preconds(
+            full_cb, lam_t, psi_t, assemble, factor))
+        smp = samplers.prepare_mc_sampler(lam, psi, key=0, device=dev,
+                                          dtype=dt)
+        rows, first = [], None
+        for s in range(nreal):
+            smp, _ = samplers.draw(smp)
+            A, b = fem.do_isotropic_elliptic_assembly(asm, torch.exp(smp.g))
+            if first is None:
+                first = (smp.xi, A, b)
+            Mp, p, d = select_nearest(bank, smp.xi, full_cb, lam_t)
+            r, sec = timed_s(lambda: pcg(A, b, M=Mp, **opts))
+            dinv = 1.0 / sparse_diagonal(A)
+            rj = pcg(A, b, M=lambda v: dinv * v, **opts)
+            rows.append(dict(it=int(r.it), it_jacobi=int(rj.it), centroid=p,
+                             distance=d, ms=1e3 * sec,
+                             true_relres=relres64(A, b, r.x)))
+        its20 = [r["it"] for r in rows]
+
+        # Example 19: truncated-KL preconditioners on the first draw
+        xi1, A1, b1 = first
+        ks = [kk for kk in QB_KS if kk <= len(lam)]
+        ex19 = {"banded_cholesky": [], "amg": []}
+        for kk in ks:
+            for name, fac in (("banded_cholesky", factor),
+                              ("amg", amg_precond)):
+                M, bs = timed_s(lambda: truncated_kl_precond(
+                    lam_t, psi_t, kk, assemble, fac, xi=xi1))
+                r, sec = timed_s(lambda: pcg(A1, b1, M=M, **opts))
+                ex19[name].append(dict(k=kk, it=int(r.it), build_s=bs,
+                                       ms=1e3 * sec))
+
+        # Example 14: Shepard's combination of a P-6 bank on the first draw
+        _, c14, _, _ = get_quantizer(1500, QB_P14, lam_t, generator=gen(1),
+                                     device=dev, dtype=dt)
+        bank14, build14_s = timed_s(lambda: build_centroidal_preconds(
+            c14, lam_t, psi_t, assemble, factor))
+        Mn, _, _ = select_nearest(bank14, xi1, c14, lam_t)
+        Ms = shepard_interpolating_precond(xi1, c14, bank14, lam_t)
+        rn, sec_n = timed_s(lambda: pcg(A1, b1, M=Mn, **opts))
+        rs, sec_s = timed_s(lambda: pcg(A1, b1, M=Ms, **opts))
+        ex14 = dict(P=QB_P14, it_nearest=int(rn.it), it_shepard=int(rs.it),
+                    ms_nearest=1e3 * sec_n, ms_shepard=1e3 * sec_s,
+                    build_s=build14_s)
+
+        # Example 13: CLVQ against k-means
+        lam13 = torch.as_tensor(np.exp(-0.4 * np.arange(QB_NKL)), dtype=dt,
+                                device=dev)
+        X = torch.randn(ns13, QB_NKL, generator=gen(2), dtype=dt,
+                        device=dev) * torch.sqrt(lam13)
+        (Ck, _), km_s = timed_s(lambda: kmeans(X, QB_P, iters=50,
+                                               generator=gen(3)))
+        gains = get_gain_sequence(1.0, 0.1, 0.2, 0.51, ns13, device=dev,
+                                  dtype=dt)
+        (Cc, _), cl_s = timed_s(lambda: clvq(X, X[:QB_P], gains))
+        w_km, w_cl = float(distortion(X, Ck)), float(distortion(X, Cc))
+        ex13 = dict(ns=ns13, P=QB_P, nKL=QB_NKL, kmeans_distortion=w_km,
+                    clvq_distortion=w_cl, kmeans_s=km_s, clvq_s=cl_s)
+
+    counts = its20 + [r["it_jacobi"] for r in rows] + [
+        r["it"] for v in ex19.values() for r in v] + [
+        ex14["it_nearest"], ex14["it_shepard"]]
+    check(all(0 < c < QB_MAXIT for c in counts),
+          f"quantized_bank: a count at maxit or 0: {counts}")
+    env = QB_ENVELOPE
+
+    def within(its, key):
+        lo, hi = env[key]
+        return all(lo <= it <= hi for it in its)
+
+    check(within(its20, "ex20_it")
+          and all(r["it"] < r["it_jacobi"] for r in rows),
+          f"quantized_bank ex20: its {its20} (envelope {env['ex20_it']}, "
+          "each below Jacobi's)")
+    for name, rs19 in ex19.items():
+        its = [r["it"] for r in rs19]
+        check(its[-1] <= its[0] and within(its, f"ex19_{name}_it"),
+              f"quantized_bank ex19 {name}: its {its} over ks {ks}")
+    check(ex14["it_shepard"] <= env["ex14_shepard_over_nearest"]
+          * ex14["it_nearest"],
+          f"quantized_bank ex14: Shepard it {ex14['it_shepard']} / nearest "
+          f"{ex14['it_nearest']}")
+    check(w_cl < env["ex13_clvq_over_kmeans"] * w_km,
+          f"quantized_bank ex13: CLVQ distortion {w_cl} / k-means {w_km}")
+    emit("quantized_bank", nnode=mesh.nnode, kl_modes=len(lam), P=QB_P,
+         nKL_trunc=k, factor="banded (get_banded_cholesky)",
+         bank_build_s=build_s, bank_bytes=bank_bytes(bank),
+         ex20=dict(its=its20, rows=rows), ex19=dict(ks=ks, **ex19),
+         ex14=ex14, ex13=ex13, envelope=env, rtol=QB_RTOL, card=card)
+
+
+def run_checkpoint_chain(metrics, plan, mesh, dev="cuda", steps=4, at=2):
+    """The utils phase's chain: `steps` chain steps on the chain phase's
+    plan, checkpointed after step `at` through save_chain_checkpoint and
+    resumed from the file into a state of another seed; the resumed steps
+    must give the same it and bit-equal W."""
+    from krylov_spdes_tpu_torch import chains
+    from krylov_spdes_tpu_torch.utils import (load_chain_checkpoint,
+                                              save_chain_checkpoint)
+    lam, psi = sine_basis(mesh.points)
+    opts = dict(nvec=NVEC, spdim=SPDIM, maxit=CHAIN_MAXIT)
+    path = str(SCRATCH / "chain.ckpt.npz")
+    with metrics.phase("utils_checkpoint", verbose=False):
+        s = chains.chain_state(chains.prepare_chain_states(lam, psi, 1,
+                                                           base_key=7), 0)
+        W, _ = chains.seed_chain(plan, s, **opts)
+        step = chains.make_chain_step(plan, **opts)
+        its = []
+        for k in range(steps):
+            s, W, it, _ = step(s, W)
+            its.append(int(it))
+            if k + 1 == at:
+                save_chain_checkpoint(path, s, W, sample_idx=at, iters=its)
+        template = chains.chain_state(chains.prepare_chain_states(
+            lam, psi, 1, base_key=0), 0)
+        s2, W2, idx, iters = load_chain_checkpoint(path, template)
+        its2 = [int(i) for i in iters]
+        for _ in range(idx, steps):
+            s2, W2, it, _ = step(s2, W2)
+            its2.append(int(it))
+    same = its2 == its and torch.equal(W2, W) and torch.equal(s2.xi, s.xi)
+    check(same, f"utils: the resumed chain gave its {its2} against {its} or "
+                "another W")
+    return dict(steps=steps, checkpoint_after=at, its=its,
+                resumed_its=its2, w_bit_equal=same)
+
+
+def run_utils(card, metrics, un, chain_ckpt, dev="cuda"):
+    """utils: save_system/load_system of the unstructured system bit for bit,
+    the chain checkpoint's result, condition_estimate of Jacobi and of
+    banded AMG on the unstructured system, and the PhaseMetrics line of the
+    new phases."""
+    from krylov_spdes_tpu_torch.utils import (condition_estimate, load_system,
+                                              save_system)
+    with metrics.phase("utils", verbose=False):
+        A, b = un["A"], un["b"]
+        path = str(SCRATCH / "unstructured.system.npz")
+        save_system(path, A, b)
+        A2, b2 = load_system(path)
+        ref = A.to_scipy()
+        A2.sort_indices()
+        same = (A2.shape == ref.shape
+                and np.array_equal(A2.indptr, ref.indptr)
+                and np.array_equal(A2.indices, ref.indices)
+                and np.array_equal(A2.data, ref.data)
+                and np.array_equal(b2, b.cpu().numpy()))
+        check(same, "utils: save_system/load_system did not give A and b "
+                    "back bit for bit")
+        dinv = un["dinv"]
+        kap = {}
+        for name, M in (("jacobi", lambda r: dinv * r),
+                        ("amg_banded", un["M_band"])):
+            kap[name] = condition_estimate(
+                A, M, iters=UT_LANCZOS, generator=torch.Generator(
+                    device=dev).manual_seed(0), device=dev,
+                dtype=A.data.dtype)
+        check(kap["amg_banded"][2] < kap["jacobi"][2],
+              f"utils: κ(AMG) {kap['amg_banded'][2]} not below κ(Jacobi) "
+              f"{kap['jacobi'][2]}")
+    metrics.dump()
+    emit("utils", system_bit_equal=same, system_file_mb=Path(
+        path).stat().st_size / 1e6, chain_checkpoint=chain_ckpt,
+         condition=dict({k: dict(lmin=v[0], lmax=v[1], kappa=v[2])
+                         for k, v in kap.items()}, lanczos_iters=UT_LANCZOS),
+         phase_metrics=json.loads(metrics.json()), card=card)
+
+
 def run(card):
     from krylov_spdes_tpu_torch import fem
     from krylov_spdes_tpu_torch.ops import cuda_build
@@ -2554,6 +3150,10 @@ def run(card):
     from krylov_spdes_tpu_torch.ops.stencil import build_stencil_op, to_full_vector
     from krylov_spdes_tpu_torch.solvers.cg import cg, pcg
     from krylov_spdes_tpu_torch.solvers.refine import refined_pcg
+    from krylov_spdes_tpu_torch.utils import PhaseMetrics
+
+    metrics = PhaseMetrics(device="cuda")
+    SCRATCH.mkdir(parents=True, exist_ok=True)
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2818,9 +3418,15 @@ def run(card):
     del realizations, solves, ref
     run_large(card)
     run_chain_slice(card, mesh, plan, kernels)
+    chain_ckpt = run_checkpoint_chain(metrics, plan, mesh)
     del plan, ps, St, A, asm
     torch.cuda.empty_cache()
-    run_dd_slice(card, mesh, kernels)
+    run_dd_slice(card, mesh, kernels, metrics)
+    torch.cuda.empty_cache()
+    un = run_unstructured(card, metrics)
+    run_unstructured_dd(card, metrics)
+    run_utils(card, metrics, un, chain_ckpt)
+    del un
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():

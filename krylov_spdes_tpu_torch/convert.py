@@ -97,7 +97,8 @@ def dd_partition(**fields) -> DDPartition:
 _DD_INDEX = {"cells", "eflat", "tgt_dom", "tgt_loc", "bI_slot", "bI_elem",
              "bG_slot", "bG_elem", "sizes_I", "sizes_G", "h_arr", "w_arr",
              "gg_tgt", "gg_ceidx", "gamma_idx", "ig_src", "ig_tgt", "g2g",
-             "gammad_to_gamma"}
+             "gammad_to_gamma", "perm", "iperm", "idx_D", "idx_E", "sel_D",
+             "sel_E"}
 
 
 def _dd_fields(cls, fields, device, dtype):
@@ -199,25 +200,62 @@ def full_rows(ps: PaddedStencil, grids) -> np.ndarray:
     return np.stack([_np(unpad_vec(ps, g)) for g in grids])
 
 
+def banded_op(D, E, perm, iperm, n, m, device=None, dtype=None):
+    """The port's BandedOp from the numpy fields of the JAX package's
+    (`banded_op(**numpy_fields(op_j))`)."""
+    from .ops.banded import BandedOp
+    device, dtype = resolve(device, dtype)
+    return BandedOp(D=_val(D, device, dtype), E=_val(E, device, dtype),
+                    perm=_idx(perm, device), iperm=_idx(iperm, device),
+                    n=int(n), m=int(m))
+
+
 def amg_hierarchy(levels, coarse_L, perm0=None, device=None, dtype=None):
     """The port's AMG hierarchy (`precond/amg.py::amg_setup`'s dict) from the
-    JAX package's: its levels (dicts of SparseOps A, P, R, or their numpy
-    fields, and dinv) and the coarse Cholesky factor. A banded hierarchy
-    (perm0 set) has no counterpart until ops/banded.py is ported."""
-    if perm0 is not None:
-        raise NotImplementedError("banded AMG levels need ops/banded.py "
-                                  "(ROADMAP §1 item 16)")
+    JAX package's: its levels (dicts of A, P, R and dinv; A a SparseOp, or a
+    BandedOp in a banded hierarchy, either as the JAX object or its numpy
+    fields), the coarse Cholesky factor and, for a banded hierarchy, perm0 =
+    (perm, iperm) of level 0."""
     device, dtype = resolve(device, dtype)
 
     def op(a):
-        return sparse_op(**(a if isinstance(a, dict) else numpy_fields(a)),
-                         device=device, dtype=dtype)
+        f = a if isinstance(a, dict) else numpy_fields(a)
+        return (banded_op if "D" in f else sparse_op)(**f, device=device,
+                                                      dtype=dtype)
 
     return dict(levels=tuple(dict(A=op(lev["A"]), P=op(lev["P"]),
                                   R=op(lev["R"]),
                                   dinv=_val(lev["dinv"], device, dtype))
                              for lev in levels),
-                coarse_L=_val(coarse_L, device, dtype), perm0=None)
+                coarse_L=_val(coarse_L, device, dtype),
+                perm0=None if perm0 is None else tuple(
+                    _idx(_np(p), device) for p in perm0))
+
+
+def banded_interior_tables(perm, iperm, nb, m, bw):
+    """The port's BandedInteriorTables (host tables, as in both packages)
+    from the numpy fields of the JAX package's."""
+    from .fem.dd_banded import BandedInteriorTables
+    return BandedInteriorTables(perm=np.asarray(perm), iperm=np.asarray(iperm),
+                                nb=int(nb), m=int(m), bw=np.asarray(bw))
+
+
+def schur_operator_banded(device=None, dtype=None, **fields):
+    """The port's SchurOperatorBandedInt from the numpy fields of the JAX
+    package's."""
+    from .fem.dd_banded import SchurOperatorBandedInt
+    device, dtype = resolve(device, dtype)
+    return SchurOperatorBandedInt(**_dd_fields(SchurOperatorBandedInt, fields,
+                                               device, dtype))
+
+
+def banded_refill_plan(device=None, dtype=None, **fields):
+    """The port's BandedRefillPlan from the numpy fields of the JAX
+    package's; its fixed-order scatters are derived on construction."""
+    from .fem.dd_banded import BandedRefillPlan
+    device, dtype = resolve(device, dtype)
+    return BandedRefillPlan(**_dd_fields(BandedRefillPlan, fields, device,
+                                         dtype))
 
 
 def lorasc_state(E, Sig, S, part, maps, LG):

@@ -1,6 +1,7 @@
 """FEM layer of the port (mirrors krylov_spdes_tpu/fem)."""
 
-from .mesh import get_mesh, element_geometry, TriMesh  # noqa: F401
+from .mesh import (get_mesh, get_delaunay_mesh, get_total_area,  # noqa: F401
+                   element_geometry, load_mesh, save_mesh, TriMesh)
 from .bc import get_dirichlet_inds, append_bc, DirichletMaps  # noqa: F401
 from .assembly import (prepare_elliptic_assembly,  # noqa: F401
                        do_isotropic_elliptic_assembly, assemble_values,
@@ -13,3 +14,9 @@ from .dd import (DDAssemblyPlan, DDPartition, assemble_dd_values,  # noqa: F401
                  set_subdomains)
 from .dd_stencil import (DDStencilPlan, assemble_dd_values_stencil,  # noqa: F401
                          condense_dd_stencil, prepare_dd_stencil_assembly)
+from .dd_banded import (BandedInteriorTables,  # noqa: F401
+                        BandedRefillPlan, SchurOperatorBandedInt,
+                        assemble_dd_values_banded, prepare_banded_dd_refill,
+                        prepare_banded_interiors,
+                        prepare_schur_operator_banded,
+                        prepare_schur_operator_banded_refill)

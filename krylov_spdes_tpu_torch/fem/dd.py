@@ -337,17 +337,28 @@ def assemble_dd_values(plan: DDAssemblyPlan, coeff_nodes: torch.Tensor):
     coeff_nodes (nnode,) gives (A_II (ndom,nI,nI), A_IG (ndom,nI,nG), A_GGd
     (ndom,nG,nG), b_I (ndom,nI), b_G (n_gamma,)); a batch of fields
     (B, nnode) gives every block a leading B axis."""
-    ndom, nI, nG = plan.ndom, plan.nI, plan.nG
+    ndom, nI = plan.ndom, plan.nI
     lead = coeff_nodes.shape[:-1]
     coeff_e = torch.mean(coeff_nodes[..., plan.cells], dim=-1)
-    vals = coeff_e[..., plan.eflat] * plan.kflat
+    s1 = plan.n_ii
+    vals_ii = coeff_e[..., plan.eflat[:s1]] * plan.kflat[:s1]
+    A_II = plan.scatters["ii"].sum(vals_ii).reshape(*lead, ndom, nI, nI)
+    return (A_II,) + refill_rest(plan, coeff_e)
+
+
+def refill_rest(plan: DDAssemblyPlan, coeff_e: torch.Tensor):
+    """(A_IG, A_GGd, b_I, b_G) of a refill from the element coefficients
+    coeff_e (..., nel): every block but the interiors, which
+    `assemble_dd_values` fills densely and `fem/dd_banded.py` in bands."""
+    ndom, nI, nG = plan.ndom, plan.nI, plan.nG
+    lead = coeff_e.shape[:-1]
     s1, s2 = plan.n_ii, plan.n_ii + plan.n_ig
+    vals = coeff_e[..., plan.eflat[s1:]] * plan.kflat[s1:]
     sc = plan.scatters
-    A_II = sc["ii"].sum(vals[..., :s1]).reshape(*lead, ndom, nI, nI)
-    A_IG = sc["ig"].sum(vals[..., s1:s2]).reshape(*lead, ndom, nI, nG)
-    A_GGd = sc["gg"].sum(vals[..., s2:]).reshape(*lead, ndom, nG, nG)
+    A_IG = sc["ig"].sum(vals[..., :s2 - s1]).reshape(*lead, ndom, nI, nG)
+    A_GGd = sc["gg"].sum(vals[..., s2 - s1:]).reshape(*lead, ndom, nG, nG)
     b_I = plan.bI_fixed + sc["bI"].sum(
         coeff_e[..., plan.bI_elem] * plan.bI_fac).reshape(*lead, ndom, nI)
     b_G = plan.bG_fixed + sc["bG"].sum(
         coeff_e[..., plan.bG_elem] * plan.bG_fac)
-    return A_II, A_IG, A_GGd, b_I, b_G
+    return A_IG, A_GGd, b_I, b_G

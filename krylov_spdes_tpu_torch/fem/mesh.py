@@ -1,8 +1,10 @@
 """Triangular meshes of the unit square (host-side, NumPy).
 
-The port's own copy of `krylov_spdes_tpu/fem/mesh.py::get_mesh` and
-`element_geometry` (importing that module would import jax through the JAX
-package's `__init__`). Arrays have the reference's meaning (Fem/Mesh.jl):
+The port's own copy of `krylov_spdes_tpu/fem/mesh.py` (importing that module
+would import jax through the JAX package's `__init__`): the structured
+`get_mesh`, the Delaunay `get_delaunay_mesh`, `element_geometry`,
+`get_total_area` and the NPZ persistence, whose files either package loads.
+Arrays have the reference's meaning (Fem/Mesh.jl):
 
 - ``cells``          (nel, 3)   int32   node indices of each triangle (0-based)
 - ``points``         (nnode, 2) float64 node coordinates
@@ -14,6 +16,7 @@ package's `__init__`). Arrays have the reference's meaning (Fem/Mesh.jl):
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -110,6 +113,50 @@ def get_mesh(tentative_nnode: int, jitter: float = 0.0, seed: int = 0) -> TriMes
     return TriMesh(cells, points, point_markers, _cell_neighbors(cells))
 
 
+def get_delaunay_mesh(tentative_nnode: int, seed: int = 0) -> TriMesh:
+    """Unstructured triangulation: Delaunay (scipy) over uniform interior
+    points from numpy's `default_rng(seed)` and regular boundary points, the
+    Triangle replacement of the reference's `get_mesh` (Fem/Mesh.jl:21-29).
+    The same (tentative_nnode, seed) gives the JAX package's mesh cell for
+    cell."""
+    rng = np.random.default_rng(seed)
+    nb = max(4, int(np.sqrt(tentative_nnode)))
+    t = np.linspace(0.0, 1.0, nb)
+    boundary = np.concatenate([
+        np.stack([t, np.zeros(nb)], 1), np.stack([t, np.ones(nb)], 1),
+        np.stack([np.zeros(nb), t], 1), np.stack([np.ones(nb), t], 1)])
+    boundary = np.unique(boundary, axis=0)
+    n_int = max(1, tentative_nnode - boundary.shape[0])
+    interior = rng.uniform(0.02, 0.98, size=(n_int, 2))
+    points = np.concatenate([boundary, interior]).astype(np.float64)
+
+    from scipy.spatial import Delaunay
+    cells = Delaunay(points).simplices.astype(np.int32)
+    # counter-clockwise orientation (positive areas)
+    p = points[cells]
+    area2 = ((p[:, 1, 0] - p[:, 0, 0]) * (p[:, 2, 1] - p[:, 0, 1])
+             - (p[:, 2, 0] - p[:, 0, 0]) * (p[:, 1, 1] - p[:, 0, 1]))
+    flip = area2 < 0
+    cells[flip, 1], cells[flip, 2] = cells[flip, 2].copy(), \
+        cells[flip, 1].copy()
+
+    on_bnd = ((np.abs(points[:, 0]) < 1e-12)
+              | (np.abs(points[:, 0] - 1) < 1e-12)
+              | (np.abs(points[:, 1]) < 1e-12)
+              | (np.abs(points[:, 1] - 1) < 1e-12))
+    return TriMesh(cells, points, on_bnd.astype(np.int32),
+                   _cell_neighbors(cells))
+
+
+def get_total_area(cells: np.ndarray, points: np.ndarray) -> float:
+    """Total mesh area by the shoelace formula (Fem/Mesh.jl:110-144)."""
+    p = points[cells]  # (nel, 3, 2)
+    x, y = p[..., 0], p[..., 1]
+    area = ((x[:, 1] - x[:, 0]) * (y[:, 2] - y[:, 0])
+            - (x[:, 2] - x[:, 0]) * (y[:, 1] - y[:, 0])) / 2.0
+    return float(area.sum())
+
+
 def element_geometry(cells: np.ndarray, points: np.ndarray):
     """Per-element shoelace terms and areas (Fem/EllipticPde.jl:91-99).
 
@@ -123,3 +170,22 @@ def element_geometry(cells: np.ndarray, points: np.ndarray):
     dy = np.stack([y[:, 1] - y[:, 2], y[:, 2] - y[:, 0], y[:, 0] - y[:, 1]], axis=1)
     area = (dx[:, 2] * dy[:, 1] - dx[:, 1] * dy[:, 2]) / 2.0
     return dx, dy, area
+
+
+# NPZ persistence (the artifact convention of Fem/Mesh.jl:52-91, 0-based):
+# the JAX package's file names and fields, so either package loads the other's.
+
+def save_mesh(mesh: TriMesh, tentative_nnode: int, data_dir: str = "data") -> None:
+    os.makedirs(data_dir, exist_ok=True)
+    base = os.path.join(data_dir, f"DoF{tentative_nnode}")
+    np.savez(base + ".mesh.npz",
+             cells=mesh.cells, points=mesh.points,
+             point_markers=mesh.point_markers,
+             cell_neighbors=mesh.cell_neighbors)
+
+
+def load_mesh(tentative_nnode: int, data_dir: str = "data") -> TriMesh:
+    base = os.path.join(data_dir, f"DoF{tentative_nnode}")
+    d = np.load(base + ".mesh.npz")
+    return TriMesh(d["cells"], d["points"], d["point_markers"],
+                   d["cell_neighbors"])

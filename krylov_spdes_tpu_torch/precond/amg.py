@@ -11,7 +11,12 @@ Example01:56, Example06:117):
   package's, so the same matrix gives the same hierarchy bit for bit (its
   spectral-radius estimate draws from numpy's `default_rng(0)`);
 - the apply is one V-cycle with weighted-Jacobi smoothing through the
-  port's `ell_spmv` and a dense Cholesky solve on the coarsest level.
+  port's `ell_spmv` and a dense Cholesky solve on the coarsest level;
+- matvec="banded" gives every level but the coarsest the RCM-banded
+  block-tridiagonal operator of `ops/banded.py`, each level's permutation
+  folded into P and R on the host, so the V-cycle permutes only on entry
+  and exit (the JAX package's option, kept for parity; on a GPU the ELL
+  levels are the faster ones).
 
 The hierarchy takes its dtype from A's values.
 """
@@ -87,11 +92,8 @@ def amg_setup(A_host: sp.spmatrix, max_levels: int = 10,
               omega: float = 4.0 / 3.0, dtype=None, matvec: str = "ell",
               device=None):
     """Build the SA-AMG hierarchy on the host; the levels go to `device` in
-    `dtype` (A's own when None). Returns dict(levels, coarse_L, perm0)."""
-    if matvec == "banded":
-        raise NotImplementedError(
-            "amg_setup(matvec='banded') needs ops/banded.py, which is not "
-            "ported yet (ROADMAP §1 item 16)")
+    `dtype` (A's own when None). Returns dict(levels, coarse_L, perm0);
+    perm0 is None, or (perm, iperm) of level 0 with matvec="banded"."""
     A = sp.csr_matrix(A_host)
     device, dtype = resolve(device, dtype or _TORCH_DTYPE.get(A.dtype))
     raw = []
@@ -110,16 +112,31 @@ def amg_setup(A_host: sp.spmatrix, max_levels: int = 10,
         raw.append((A, P))
         A = sp.csr_matrix(P.T @ A @ P)
 
-    levels = tuple(dict(
-        A=from_scipy(Al, dtype=dtype, device=device),
-        P=from_scipy(P, dtype=dtype, device=device),
-        R=from_scipy(sp.csr_matrix(P.T), dtype=dtype, device=device),
-        dinv=torch.as_tensor(1.0 / Al.diagonal(), dtype=dtype, device=device),
-    ) for Al, P in raw)
+    def level(Aop, P, dinv):
+        return dict(A=Aop, P=from_scipy(P, dtype=dtype, device=device),
+                    R=from_scipy(sp.csr_matrix(P.T), dtype=dtype,
+                                 device=device),
+                    dinv=torch.as_tensor(dinv, dtype=dtype, device=device))
+
+    perm0 = None
+    if matvec == "banded" and raw:
+        from ..ops.banded import build_banded_op
+        bops = [build_banded_op(Al, dtype=dtype, device=device)
+                for Al, _ in raw]
+        # the coarsest level keeps the natural order
+        perms = [b.perm.cpu().numpy() for b in bops] + [np.arange(A.shape[0])]
+        levels = tuple(
+            level(bops[k], sp.csr_matrix(P[perms[k]][:, perms[k + 1]]),
+                  1.0 / Al.diagonal()[perms[k]])
+            for k, (Al, P) in enumerate(raw))
+        perm0 = (bops[0].perm, bops[0].iperm)
+    else:
+        levels = tuple(level(from_scipy(Al, dtype=dtype, device=device), P,
+                             1.0 / Al.diagonal()) for Al, P in raw)
     coarse = torch.as_tensor(A.toarray(), dtype=dtype, device=device)
     coarse_L = torch.linalg.cholesky(
         coarse + 1e-12 * torch.eye(A.shape[0], dtype=dtype, device=device))
-    return dict(levels=levels, coarse_L=coarse_L, perm0=None)
+    return dict(levels=levels, coarse_L=coarse_L, perm0=perm0)
 
 
 def _vcycle(npre, npost, hier, omega, r):
@@ -147,6 +164,9 @@ def _vcycle(npre, npost, hier, omega, r):
         x = x + ell_spmv(lev["P"], xc)
         return smooth(lev["A"], lev["dinv"], x, b, npost)
 
+    if hier["perm0"] is not None:
+        perm, iperm = hier["perm0"]
+        return down(0, r[perm])[iperm]
     return down(0, r)
 
 

@@ -157,8 +157,12 @@ def test_amg_hierarchy_matches_jax(system):
     for hier in (carried, ht):
         zt = tamg._vcycle(1, 1, hier, 2.0 / 3.0, torch.as_tensor(r))
         assert _rel(zt.numpy(), zj) <= 1e-12
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tamg.amg_setup(At.to_scipy(), matvec="banded", device="cpu")
+    # the banded option (tests/test_torch_banded.py holds it against JAX):
+    # the same hierarchy, so the same V-cycle up to rounding
+    hb = tamg.amg_setup(At.to_scipy(), matvec="banded", device="cpu")
+    assert hb["perm0"] is not None and len(hb["levels"]) == len(ht["levels"])
+    zb = tamg._vcycle(1, 1, hb, 2.0 / 3.0, torch.as_tensor(r))
+    assert _rel(zb.numpy(), zj) <= 1e-12
 
 
 def test_bj_plan_reuse_across_realizations():
