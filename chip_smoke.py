@@ -5,7 +5,8 @@ preconditioned solves of Examples 06, 07 and 09, the KL basis (single-domain
 and two-level), Example 11's multiple right-hand sides, Example 17's
 certified recyclers, the quantized preconditioner banks of Examples 13, 14,
 19 and 20, the unstructured path (Delaunay mesh, RCM-banded operator,
-banded AMG, banded DD interiors) and utils.
+banded AMG, banded DD interiors), utils, and the sharded layouts over
+torch.distributed (several ranks on this one card).
 
     python3 chip_smoke.py
 
@@ -230,6 +231,37 @@ Phases:
                 the same `it` and a bit-equal W; condition_estimate of
                 Jacobi and of banded AMG (κ(AMG) < κ(Jacobi)); the
                 PhaseMetrics line of the slice-9 phases (its keys t_<phase>)
+ 12f. parallel_kl   (after kl_dd) 2 ranks over gloo on the card, kl_dd's
+                problem in float64: reduced_covariance_device(mesh=) on
+                the serial ρ (K within 1e-10 of the serial K),
+                compute_dd_kl_device(mesh=) and compute_dd_kl(device_mesh=)
+                (λ within 1e-9 of kl_dd's unsharded λ)
+     parallel_nccl   a world of one over NCCL in this process:
+                make_sharded_chain_step on the chain phase's 250k plan, 1
+                chain, seed + 2 steps: `it` equal, g and W bit-equal to
+                make_chain_step, kernel A launched; then
+                make_dom_sharded_dd_chain_step at dom 1 x chain 1 on
+                dd_general's plan, seed + 2 steps: `it` within 2 of the
+                single-chain step's range over W and 4 last-bit copies of
+                W (the copies run only where `it` is not within 2 of W's),
+                proposals equal, g within 1e-6
+     parallel_chain  2 ranks over gloo: 4 chains on the 250k plan, each
+                rank seeding its 2 (seed_chain), 2 steps of
+                make_sharded_chain_step; every chain's `it`, proposals, g
+                and W bit-equal to make_chain_step in this process from
+                the same seeds; ms a step beside this process's loop over
+                the same chains; kernel A's launches on each rank
+     parallel_dd     4 ranks (dom 2 x chain 2) over gloo on dd_general's
+                plan, 2 chains: the dom-sharded seed and 2 steps (held as
+                in parallel_nccl; one step run twice, bit-equal), and 2
+                steps of make_sharded_dd_chain_step bit-equal to
+                make_dd_chain_step; ms a step, psum calls and bytes a step
+     dryrun_multichip   entry.dryrun_multichip(4, backend="gloo") on the
+                card: its OK line; parallel_total: these phases' seconds
+     Each multi-rank line names its backend: NCCL takes one rank a GPU, so
+     several ranks on this card run gloo on card-resident tensors, and no
+     phase can show a speed-up. A rank that fails or outlives its timeout
+     fails the run.
  13. kernels    one {"kernels": [...]} line with each kernel's launches on
                 its main path (all must be > 0; A's count includes the samg arm of
                 ex06_certified, printed there on its own) and its times
@@ -1376,7 +1408,7 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
     f_src = lambda x, y: -1.0 + 0.0 * x   # noqa: E731
     u_dir = lambda x, y: 0.0 * x          # noqa: E731
     ndom, nvec, maxit = DD_NDOM, DD_NVEC, DD_MAXIT
-    spdim = max(3 * ndom, 2 * nvec + 1)
+    spdim = dd_spdim(ndom, nvec)
 
     def one_state(lam, psi, key=0):
         return chains.chain_state(chains.prepare_chain_states(
@@ -1564,7 +1596,7 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
     run_certified_slice(card, mesh, maps, part_g, plan_g, lam, psi, kernels)
     del plan_g, part_g
     torch.cuda.empty_cache()
-    lam32, psi32 = run_slice8(card, mesh, maps, ndom)
+    lam32, psi32, t_parallel_kl = run_slice8(card, mesh, maps, ndom)
     run_quantized_bank(card, metrics, mesh, maps, lam32, psi32)
     del lam32, psi32
     torch.cuda.empty_cache()
@@ -1631,6 +1663,7 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
          true_relres_plain_float32_pcg=tr_ref,
          rel_diff_to_plain_solve=rel(u, ref.x), it_plain_pcg=int(ref.it),
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, card=card)
+    return t_parallel_kl
 
 
 # ---------------------------------------------------------------------------
@@ -2190,8 +2223,10 @@ def run_kl_dd(card, mesh, lam_single64, dev="cuda",
          ms=dict(host=ms_host, device=ms_dev, device_eigh_max_modes=ms_eigh,
                  device_randomized_max_modes=ms_rand),
          seconds=time.perf_counter() - t_phase, card=card)
+    t_parallel = run_parallel_kl(card, args, dd, lh, ld, f64, dev)
 
     # the preset size: float32 against float64, the stage times
+    t_phase = time.perf_counter()
     mesh_p = fem.get_mesh(preset_nnode)
     epart, ndom = partition(mesh_p)
     args = (mesh_p.cells, mesh_p.points, epart, ndom, cov)
@@ -2214,6 +2249,7 @@ def run_kl_dd(card, mesh, lam_single64, dev="cuda",
          ms_float64=ms64, stages_float32=st32, stages_float64=st64,
          archive=archive_distance(l64, p64, KL_ARCHIVE_128K),
          seconds=time.perf_counter() - t_phase, card=card)
+    return t_parallel
 
 
 def run_solvers_extra(card, mesh, maps, lam, psi, dev="cuda",
@@ -2493,15 +2529,16 @@ def run_ex17_certified(card, mesh, maps, lam, psi, ndom, dev="cuda",
 
 
 def run_slice8(card, mesh, maps, ndom, dev="cuda"):
-    """kl_protocol, kl_dd, solvers_extra and ex17_certified on the mesh and
-    maps of dd_general. Returns kl_protocol's float32 basis (λ, ψ)."""
+    """kl_protocol, kl_dd (and parallel_kl), solvers_extra and
+    ex17_certified on the mesh and maps of dd_general. Returns
+    kl_protocol's float32 basis (λ, ψ) and parallel_kl's seconds."""
     lam32, psi32, lam64 = run_kl_protocol(card, mesh, dev)
-    run_kl_dd(card, mesh, lam64, dev)
+    t_parallel_kl = run_kl_dd(card, mesh, lam64, dev)
     if dev == "cuda":
         torch.cuda.empty_cache()
     run_solvers_extra(card, mesh, maps, lam32, psi32, dev)
     run_ex17_certified(card, mesh, maps, lam32, psi32, ndom, dev)
-    return lam32, psi32
+    return lam32, psi32, t_parallel_kl
 
 
 def run_precond_apply(card, dev="cuda", nnode=PA_NNODE, ndom=PA_NDOM):
@@ -3142,6 +3179,464 @@ def run_utils(card, metrics, un, chain_ckpt, dev="cuda"):
          phase_metrics=json.loads(metrics.json()), card=card)
 
 
+# ---------------------------------------------------------------------------
+# Slice 10: the sharded layouts over torch.distributed. One card holds every
+# rank here: NCCL takes one rank a GPU, so the world of one runs NCCL and
+# the multi-rank phases gloo on card-resident tensors (each line names its
+# backend). Several ranks share one GPU, so no phase shows a speed-up.
+# ---------------------------------------------------------------------------
+
+PAR_CHAINS, PAR_CHAIN_KEY, PAR_DD_CHAINS, PAR_DD_KEY = 4, 40, 2, 50
+PAR_ENVELOPE = 4         # last-bit copies of W behind the DD `it` envelope
+PAR_TIMEOUT = 300.0      # seconds a launch may take before its ranks die
+CHAIN_OPTS = dict(nvec=NVEC, spdim=SPDIM, maxit=CHAIN_MAXIT, rtol=CHAIN_RTOL)
+
+
+def _f_src(x, y):
+    return -1.0 + 0.0 * x
+
+
+def _u_dir(x, y):
+    return 0.0 * x
+
+
+def digest(t):
+    """sha256 of a tensor's bytes: equal digests are equal bits."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def stencil_problem(nnode, dev):
+    """The chain phase's plan (bench_chain.py's configuration) and sine
+    basis on get_mesh(nnode)."""
+    from krylov_spdes_tpu_torch import fem
+    mesh = fem.get_mesh(nnode)
+    maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    plan = fem.prepare_stencil_assembly(mesh, maps, _f_src, _u_dir,
+                                        device=dev)
+    return (plan,) + sine_basis(mesh.points)
+
+
+def dd_problem(nnode, ndom, epart, dev):
+    """dd_general's plan (dense interiors) from the C++ partitioner's
+    partition `epart`, and the sine basis."""
+    from krylov_spdes_tpu_torch import fem
+    mesh = fem.get_mesh(nnode)
+    maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+    part = fem.set_subdomains(mesh.cells, epart, maps, ndom)
+    plan = fem.prepare_dd_assembly(mesh.cells, mesh.points, epart, part, maps,
+                                   _f_src, _u_dir, device=dev)
+    return (plan, part) + sine_basis(mesh.points)
+
+
+def dd_spdim(ndom, nvec):
+    return max(3 * ndom, 2 * nvec + 1)
+
+
+def _timed_step(step, sync, *a):
+    sync()
+    t0 = time.perf_counter()
+    out = step(*a)
+    sync()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _par_chain_rank(nchains, key, nnode, dev):
+    """parallel_chain's rank: eigPCG seeds of its half of the chains, then
+    two steps of make_sharded_chain_step; the seeds whole (from rank 0),
+    digests of the whole results, kernel A's launches in the steps."""
+    import torch.distributed as dist
+    from krylov_spdes_tpu_torch import chains
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    from krylov_spdes_tpu_torch.parallel import all_gather_cat, make_mesh
+    t_rank = time.perf_counter()
+    mesh = make_mesh(1, dist.get_world_size())
+    plan, lam, psi = stencil_problem(nnode, dev)
+    states = chains.prepare_chain_states(lam, psi, nchains, base_key=key,
+                                         device=dev)
+    step = chains.make_sharded_chain_step(mesh, plan, **CHAIN_OPTS)
+    sync = synchronizer(dev)
+    sync()
+    t0 = time.perf_counter()
+    seeds = [chains.seed_chain(plan, chains.chain_state(states, c),
+                               **CHAIN_OPTS)
+             for c in range(nchains)[mesh.block("chain", nchains)]]
+    W = all_gather_cat(torch.stack([W for W, _ in seeds]), mesh, "chain")
+    its0 = all_gather_cat(torch.tensor([int(it) for _, it in seeds],
+                                       device=dev), mesh, "chain")
+    sync()
+    seed_ms = 1e3 * (time.perf_counter() - t0)
+    W0 = W.cpu().numpy() if dist.get_rank() == 0 else None
+    sk.stencil_spmv.launches = 0
+    rows = []
+    for _ in range(2):
+        (states, W, its, cnt), ms = _timed_step(step, sync, states, W)
+        rows.append(dict(ms=ms, its=its.tolist(), proposals=cnt.tolist(),
+                         g=digest(states.g), W=digest(W)))
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(),
+                device=str(W.device), launches_a=sk.stencil_spmv.launches,
+                W0=W0, seed_its=its0.tolist(), seed_ms=seed_ms, steps=rows,
+                rank_ms=1e3 * (time.perf_counter() - t_rank))
+
+
+def _par_dd_rank(epart, nchains, key, nnode, ndom, dev):
+    """parallel_dd's rank on a dom 2 × chain 2 mesh: the dom-sharded seed,
+    step 1 twice from one state and W (bit for bit), step 2; two steps of
+    the chain-sharded step from the same seed; ms, psum calls and bytes a
+    step."""
+    import torch.distributed as dist
+    from krylov_spdes_tpu_torch import chains, dd_chains
+    from krylov_spdes_tpu_torch.parallel import make_mesh
+    t_rank = time.perf_counter()
+    mesh = make_mesh(2, 2)
+    plan, part, lam, psi = dd_problem(nnode, ndom, epart, dev)
+    states = chains.prepare_chain_states(lam, psi, nchains, base_key=key,
+                                         device=dev)
+    opts = dict(nvec=DD_NVEC, spdim=dd_spdim(ndom, DD_NVEC), maxit=DD_MAXIT)
+    step, seed = dd_chains.make_dom_sharded_dd_chain_step(mesh, plan, part,
+                                                          **opts)
+    sync = synchronizer(dev)
+    np_ = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    (W0, it0), seed_ms = _timed_step(seed, sync, states)
+    out = dict(rank=dist.get_rank(), backend=dist.get_backend(),
+               device=str(W0.device), W0=np_(W0), it0=np_(it0),
+               seed_ms=seed_ms)
+    calls, nbytes = mesh.psum_calls, mesh.psum_bytes
+    (s1, W1, its1, cnt1), ms1 = _timed_step(step, sync, clone_state(states),
+                                            W0)
+    out["psum_calls_per_step"] = mesh.psum_calls - calls
+    out["psum_bytes_per_step"] = mesh.psum_bytes - nbytes
+    again, ms1b = _timed_step(step, sync, clone_state(states), W0)
+    out["repeat_bit_equal"] = (torch.equal(again[1], W1)
+                               and torch.equal(again[0].g, s1.g)
+                               and torch.equal(again[2], its1))
+    (s2, W2, its2, cnt2), ms2 = _timed_step(step, sync, s1, W1)
+    out.update(dom=dict(g1=np_(s1.g), W1=np_(W1), its1=np_(its1),
+                        cnt1=np_(cnt1), g2=np_(s2.g), W2=np_(W2),
+                        its2=np_(its2), cnt2=np_(cnt2),
+                        ms=[ms1, ms1b, ms2]))
+    cstep = dd_chains.make_sharded_dd_chain_step(mesh, plan, part,
+                                                 axis="chain", **opts)
+    (c1, cW1, cits1, ccnt1), cms1 = _timed_step(cstep, sync,
+                                                clone_state(states), W0)
+    (c2, cW2, cits2, ccnt2), cms2 = _timed_step(cstep, sync, c1, cW1)
+    out.update(chain=dict(W1=digest(cW1), its1=np_(cits1), cnt1=np_(ccnt1),
+                          g1=digest(c1.g), W2=digest(cW2), its2=np_(cits2),
+                          cnt2=np_(ccnt2), g2=digest(c2.g),
+                          ms=[cms1, cms2]))
+    out["rank_ms"] = 1e3 * (time.perf_counter() - t_rank)
+    return out
+
+
+def _par_kl_rank(cells, points, epart, ndom, rho, dev):
+    """parallel_kl's rank: reduced_covariance_device(mesh=) on the parent's
+    ρ, compute_dd_kl_device(mesh=) and compute_dd_kl(device_mesh=), in
+    float64; rank 0 returns K, every rank its digest."""
+    import torch.distributed as dist
+    from krylov_spdes_tpu_torch import kl
+    from krylov_spdes_tpu_torch.kl import dd_device
+    from krylov_spdes_tpu_torch.parallel import make_mesh
+    t_rank = time.perf_counter()
+    mesh = make_mesh(dist.get_world_size(), 1)
+    f64 = dict(dtype=torch.float64, device=dev)
+    cov = kl.make_cov(KL_MODEL, KL_SIG2, KL_L)
+    dd = dict(nev=KL_NEV, relative_local=KL_DD_RELATIVE_LOCAL,
+              relative_global=KL_RELATIVE)
+    sync = synchronizer(dev)
+    tables = dd_device.build_kl_tables(cells, points, epart, ndom)
+    K, ms_k = _timed_step(partial(dd_device.reduced_covariance_device, mesh=mesh),
+                          sync, tables, points, torch.as_tensor(rho, device=dev),
+                          cov)
+    psum_bytes = mesh.psum_bytes
+    (ld, _), ms_dev = _timed_step(
+        partial(dd_device.compute_dd_kl_device, mesh=mesh, **dd, **f64),
+        sync, cells, points, epart, ndom, cov)
+    (lh, _), ms_host = _timed_step(
+        partial(kl.compute_dd_kl, device_mesh=mesh, **dd, **f64),
+        sync, cells, points, epart, ndom, cov)
+    rank = dist.get_rank()
+    return dict(rank=rank, backend=dist.get_backend(), device=str(K.device),
+                K=K.cpu().numpy() if rank == 0 else None, K_digest=digest(K),
+                K_psum_bytes=psum_bytes, lam_device=ld, lam_host=lh,
+                ms=dict(reduced_covariance=ms_k, compute_dd_kl_device=ms_dev,
+                        compute_dd_kl=ms_host),
+                rank_ms=1e3 * (time.perf_counter() - t_rank))
+
+
+def dd_single_envelope(step1, state, W, it, n=PAR_ENVELOPE):
+    """The single-chain DD step from `state` on W: its run (state, W', it,
+    proposals) and the `it` it takes, and, where the sharded step's `it`
+    lies more than 2 from that, its `it` on n copies of W changed in their
+    last bit too (the range `it` is held to; W's own run is in it)."""
+    runs = [step1(clone_state(state), W)]
+    if abs(int(runs[0][2]) - it) > 2:
+        runs += [step1(clone_state(state), Wc) for Wc in perturbed(W, n)[1:]]
+    return [int(r[2]) for r in runs], runs[0]
+
+
+def run_parallel_kl(card, args, dd, lam_host, lam_dev, f64, dev="cuda"):
+    """parallel_kl: the two-level KL's sharded arms on 2 ranks (gloo on the
+    card) against kl_dd's unsharded results on the same problem."""
+    from krylov_spdes_tpu_torch.kl import dd_device
+    from krylov_spdes_tpu_torch.parallel import launch
+    t_phase = time.perf_counter()
+    cells, points, epart, ndom, cov = args
+    tables = dd_device.build_kl_tables(cells, points, epart, ndom)
+    _, _, rho, _, _ = dd_device.local_kls_device(
+        tables, points, cov, dd["nev"], relative=dd["relative_local"], **f64)
+    K = dd_device.reduced_covariance_device(tables, points, rho, cov)
+    t_launch = time.perf_counter()
+    out = launch(_par_kl_rank, 2,
+                 args=(cells, points, epart, ndom, rho.cpu().numpy(), dev),
+                 backend="gloo", device=dev, timeout=PAR_TIMEOUT)
+    launch_ms = 1e3 * (time.perf_counter() - t_launch)
+    K = K.cpu().numpy()
+    k_err = float(np.abs(out[0]["K"] - K).max() / np.abs(K).max())
+    check(k_err <= 1e-10 and len({o["K_digest"] for o in out}) == 1,
+          f"parallel_kl: sharded K {k_err} from the serial K")
+
+    def lam_err(a, b):
+        return (float(np.max(np.abs(np.asarray(a) / np.asarray(b) - 1)))
+                if len(a) == len(b) else float("inf"))
+    errs = dict(device=max(lam_err(o["lam_device"], lam_dev) for o in out),
+                host=max(lam_err(o["lam_host"], lam_host) for o in out))
+    check(max(errs.values()) <= 1e-9,
+          f"parallel_kl: sharded λ from the unsharded λ: {errs}")
+    emit("parallel_kl", ranks=2, backend=out[0]["backend"],
+         device=out[0]["device"], ranks_share_one_gpu=dev == "cuda",
+         nnode=points.shape[0], ndom=ndom, dtype="float64",
+         K_shape=list(K.shape), K_max_rel_diff=k_err, K_tolerance=1e-10,
+         K_psum_bytes_per_rank=out[0]["K_psum_bytes"],
+         kept=len(lam_dev), lam_max_rel_diff=errs, lam_tolerance=1e-9,
+         ms=[o["ms"] for o in out], launch_ms=launch_ms,
+         rank_ms=[o["rank_ms"] for o in out],
+         seconds=time.perf_counter() - t_phase, card=card)
+    return time.perf_counter() - t_phase
+
+
+def run_parallel(card, dev="cuda", nnode=NNODE, dd_nnode=DD_NNODE,
+                 ndom=DD_NDOM, nccl=True):
+    """parallel_nccl, parallel_chain, parallel_dd and dryrun_multichip
+    (parallel_kl runs inside kl_dd). Returns their seconds."""
+    import torch.distributed as dist
+    from krylov_spdes_tpu_torch import chains, dd_chains, entry, fem
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    from krylov_spdes_tpu_torch.parallel import (init_distributed, launch,
+                                                 make_mesh)
+    sync = synchronizer(dev)
+    seconds = {}
+    check(tf32_off(), "parallel: TF32 on before the sharded phases")
+    plan, lam, psi = stencil_problem(nnode, dev)
+    mesh_dd = fem.get_mesh(dd_nnode)
+    epart, _ = fem.mesh_partition(mesh_dd.cells, mesh_dd.points, ndom,
+                                  mesh_dd.cell_neighbors, use_native=True)
+    plan_d, part_d, lam_d, psi_d = dd_problem(dd_nnode, ndom, epart, dev)
+    dd_opts = dict(nvec=DD_NVEC, spdim=dd_spdim(ndom, DD_NVEC),
+                   maxit=DD_MAXIT)
+    step1 = dd_chains.make_dd_chain_step(plan_d, part_d, **dd_opts)
+
+    # ---- parallel_nccl: a world of one over NCCL, in this process -----------
+    t_phase = time.perf_counter()
+    init_distributed(backend="nccl" if nccl else "gloo", device=dev)
+    try:
+        backend = dist.get_backend()
+        mesh1 = make_mesh(1, 1)
+        states = chains.prepare_chain_states(lam, psi, 1, base_key=0,
+                                             device=dev)
+        st0 = chains.chain_state(states, 0)
+        W0, it0 = chains.seed_chain(plan, st0, **CHAIN_OPTS)
+        step = chains.make_chain_step(plan, **CHAIN_OPTS)
+        ref, s, W = [], clone_state(st0), W0
+        for _ in range(2):
+            s, W, it, cnt = step(s, W)
+            ref.append((int(it), int(cnt), s.g, W))
+        sstep = chains.make_sharded_chain_step(mesh1, plan, **CHAIN_OPTS)
+        sk.stencil_spmv.launches = 0
+        S, Wg, rows = states, W0[None], []
+        for k in range(2):
+            (S, Wg, its, cnt), ms = _timed_step(sstep, sync, S, Wg)
+            it_r, cnt_r, g_r, W_r = ref[k]
+            check(int(its[0]) == it_r and int(cnt[0]) == cnt_r
+                  and torch.equal(S.g[0], g_r) and torch.equal(Wg[0], W_r),
+                  f"parallel_nccl: sharded chain step {k + 1} (it "
+                  f"{int(its[0])}) differs from make_chain_step (it {it_r})")
+            rows.append(dict(it=int(its[0]), proposals=int(cnt[0]), ms=ms,
+                             bit_equal=True))
+        launches_a = sk.stencil_spmv.launches
+        check(dev != "cuda" or launches_a > 0,
+              "parallel_nccl: kernel A was not launched")
+        # the dom-sharded DD step at dom 1 × chain 1
+        sd, seed_d = dd_chains.make_dom_sharded_dd_chain_step(
+            mesh1, plan_d, part_d, **dd_opts)
+        st_d = chains.prepare_chain_states(lam_d, psi_d, 1,
+                                           base_key=PAR_DD_KEY, device=dev)
+        Wd, itd0 = seed_d(st_d)
+        dd_rows = []
+        for k in range(2):
+            before = (chains.chain_state(clone_state(st_d), 0), Wd[0])
+            (st_d, Wd, its, cnt), ms = _timed_step(sd, sync, st_d, Wd)
+            env, (s_ref, _, _, cnt_ref) = dd_single_envelope(
+                step1, *before, int(its[0]))
+            check(min(env) - 2 <= int(its[0]) <= max(env) + 2
+                  and int(cnt[0]) == cnt_ref
+                  and float((st_d.g[0] - s_ref.g).abs().max()) <= 1e-6,
+                  f"parallel_nccl: dom-sharded step {k + 1}: it "
+                  f"{int(its[0])}, single-chain envelope {env}")
+            dd_rows.append(dict(it=int(its[0]), single_chain_its=env,
+                                proposals=int(cnt[0]), ms=ms))
+        seconds["parallel_nccl"] = time.perf_counter() - t_phase
+        emit("parallel_nccl", ranks=1, backend=backend, device=str(W0.device),
+             chain=dict(nnode=plan.H * plan.W, nchains=1, seed_it=int(it0),
+                        steps=rows, launches_a=launches_a,
+                        reference="make_chain_step, it equal, W and g "
+                                  "bit-equal"),
+             dd=dict(mesh="dom 1 x chain 1", ndom=ndom,
+                     n_gamma=plan_d.n_gamma, seed_it=int(itd0[0]),
+                     steps=dd_rows, psum_calls=mesh1.psum_calls,
+                     tolerance="it within 2 of the single-chain step's "
+                               f"range over W and {PAR_ENVELOPE} last-bit "
+                               "copies (the copies run only where it is "
+                               "not within 2 of W's); proposals equal; g "
+                               "within 1e-6"),
+             seconds=seconds["parallel_nccl"], card=card)
+    finally:
+        dist.destroy_process_group()
+
+    # ---- parallel_chain: 2 ranks, 4 chains, against this process's loop ------
+    t_phase = time.perf_counter()
+    out = launch(_par_chain_rank, 2,
+                 args=(PAR_CHAINS, PAR_CHAIN_KEY, nnode, dev),
+                 backend="gloo", device=dev, timeout=PAR_TIMEOUT)
+    launch_ms = 1e3 * (time.perf_counter() - t_phase)
+    states = chains.prepare_chain_states(lam, psi, PAR_CHAINS,
+                                         base_key=PAR_CHAIN_KEY, device=dev)
+    # the ranks' seeds (seed_chain, chain by chain: what this process's
+    # would be on this card) start this process's loop
+    W0 = torch.as_tensor(out[0]["W0"], device=dev)
+    ref = [(chains.chain_state(clone_state(states), c), W0[c])
+           for c in range(PAR_CHAINS)]
+    loop = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        runs = [step(s, W) for s, W in ref]
+        sync()
+        loop.append(dict(ms=1e3 * (time.perf_counter() - t0),
+                         its=[int(r[2]) for r in runs],
+                         proposals=[int(r[3]) for r in runs],
+                         g=digest(torch.stack([r[0].g for r in runs])),
+                         W=digest(torch.stack([r[1] for r in runs]))))
+        ref = [r[:2] for r in runs]
+    for o in out:
+        for k, (row, want) in enumerate(zip(o["steps"], loop)):
+            check(all(row[key] == want[key]
+                      for key in ("its", "proposals", "g", "W")),
+                  f"parallel_chain: rank {o['rank']} step {k + 1}: it "
+                  f"{row['its']} / {want['its']}, proposals, g or W differ "
+                  "from make_chain_step's")
+        check(dev != "cuda" or o["launches_a"] > 0,
+              f"parallel_chain: rank {o['rank']} launched no kernel A")
+    seconds["parallel_chain"] = time.perf_counter() - t_phase
+    emit("parallel_chain", ranks=2, backend=out[0]["backend"],
+         device=out[0]["device"], ranks_share_one_gpu=dev == "cuda",
+         nchains=PAR_CHAINS, seed_its=out[0]["seed_its"],
+         seed_ms_sharded=[o["seed_ms"] for o in out],
+         its=[r["its"] for r in loop],
+         proposals=[r["proposals"] for r in loop],
+         ms_per_step_sharded=[[r["ms"] for r in o["steps"]] for o in out],
+         ms_per_step_one_process_loop=[r["ms"] for r in loop],
+         launches_a_per_rank=[o["launches_a"] for o in out],
+         launch_ms=launch_ms, rank_ms=[o["rank_ms"] for o in out],
+         reference="make_chain_step in one process: it, proposals, g and W "
+                   "bit-equal", seconds=seconds["parallel_chain"], card=card)
+
+    # ---- parallel_dd: dom 2 × chain 2 on dd_general's plan -------------------
+    t_phase = time.perf_counter()
+    out = launch(_par_dd_rank, 4,
+                 args=(epart, PAR_DD_CHAINS, PAR_DD_KEY, dd_nnode, ndom, dev),
+                 backend="gloo", device=dev, timeout=PAR_TIMEOUT)
+    launch_ms = 1e3 * (time.perf_counter() - t_phase)
+    o = out[0]
+    for other in out[1:]:
+        check(all(np.array_equal(other["dom"][key], o["dom"][key])
+                  for key in ("W1", "W2", "g2", "its2")),
+              f"parallel_dd: rank {other['rank']} holds other chains")
+    check(all(r["repeat_bit_equal"] for r in out),
+          "parallel_dd: one dom-sharded step run twice differs")
+    states = chains.prepare_chain_states(lam_d, psi_d, PAR_DD_CHAINS,
+                                         base_key=PAR_DD_KEY, device=dev)
+    as_t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    dd_rows, seed_single, chain_ref = [], [], {1: [], 2: []}
+    for c in range(PAR_DD_CHAINS):
+        st = chains.chain_state(clone_state(states), c)
+        seed_single.append(int(dd_chains.seed_dd_chain(
+            plan_d, part_d, st, DD_NVEC, dd_opts["spdim"], DD_MAXIT)[1]))
+        # the chain-sharded step runs this step on each rank's chains
+        s, W = clone_state(st), as_t(o["W0"][c])
+        for k in (1, 2):
+            s, W, it, cnt = step1(s, W)
+            chain_ref[k].append((s.g, W, int(it), int(cnt)))
+        # the dom-sharded step: within the single-chain step's envelope
+        W, row = as_t(o["W0"][c]), {}
+        for k in (1, 2):
+            it_k = int(o["dom"][f"its{k}"][c])
+            env, (st, _, _, cnt_ref) = dd_single_envelope(step1, st, W, it_k)
+            g_err = float(np.abs(o["dom"][f"g{k}"][c]
+                                 - st.g.cpu().numpy()).max())
+            check(min(env) - 2 <= it_k <= max(env) + 2
+                  and int(o["dom"][f"cnt{k}"][c]) == cnt_ref
+                  and g_err <= 1e-6,
+                  f"parallel_dd: dom-sharded step {k} chain {c}: it {it_k}, "
+                  f"single-chain envelope {env}, g {g_err}")
+            row[f"step{k}"] = dict(it=it_k, single_chain_its=env,
+                                   proposals=cnt_ref, g_max_abs_diff=g_err)
+            W = as_t(o["dom"][f"W{k}"][c])
+        dd_rows.append(row)
+    for k in (1, 2):
+        g, W, its, cnts = zip(*chain_ref[k])
+        want = (digest(torch.stack(W)), digest(torch.stack(g)), list(its),
+                list(cnts))
+        for r in out:
+            ch = r["chain"]
+            check((ch[f"W{k}"], ch[f"g{k}"], ch[f"its{k}"].tolist(),
+                   ch[f"cnt{k}"].tolist()) == want,
+                  f"parallel_dd: chain-sharded step {k} on rank {r['rank']}"
+                  f": it {ch[f'its{k}'].tolist()} / {list(its)}, W' or g "
+                  "differ from the single-chain step's")
+    seconds["parallel_dd"] = time.perf_counter() - t_phase
+    emit("parallel_dd", ranks=4, mesh="dom 2 x chain 2",
+         backend=o["backend"], device=o["device"],
+         ranks_share_one_gpu=dev == "cuda", ndom=ndom, nI=plan_d.nI,
+         nG=plan_d.nG, n_gamma=plan_d.n_gamma, nchains=PAR_DD_CHAINS,
+         seed_its=o["it0"].tolist(), seed_its_single_chain=seed_single,
+         seed_ms=o["seed_ms"], chains=dd_rows,
+         ms_per_step_dom_sharded=[r["dom"]["ms"] for r in out],
+         ms_per_step_chain_sharded=[r["chain"]["ms"] for r in out],
+         chain_sharded_its=[o["chain"]["its1"].tolist(),
+                            o["chain"]["its2"].tolist()],
+         launch_ms=launch_ms, rank_ms=[r["rank_ms"] for r in out],
+         psum_calls_per_step=o["psum_calls_per_step"],
+         psum_bytes_per_step=o["psum_bytes_per_step"],
+         repeat_bit_equal=True,
+         tolerance=f"dom-sharded: it within 2 of the single-chain step's "
+                   f"range over W and {PAR_ENVELOPE} last-bit copies (run "
+                   "only where it is not within 2 of W's), proposals equal, "
+                   "g within 1e-6; chain-sharded: it, "
+                   "proposals, g and W' bit-equal to the single-chain "
+                   "step's",
+         seconds=seconds["parallel_dd"], card=card)
+
+    # ---- dryrun_multichip: 4 ranks through the entry point --------------------
+    t_phase = time.perf_counter()
+    line = entry.dryrun_multichip(4, backend="gloo", device=dev)
+    check(line.startswith("dryrun_multichip OK: 4 devices"), line)
+    seconds["dryrun_multichip"] = time.perf_counter() - t_phase
+    emit("dryrun_multichip", ranks=4, backend="gloo", device=dev,
+         ranks_share_one_gpu=dev == "cuda", line=line,
+         seconds=seconds["dryrun_multichip"], card=card)
+    return seconds
+
+
 def run(card):
     from krylov_spdes_tpu_torch import fem
     from krylov_spdes_tpu_torch.ops import cuda_build
@@ -3421,12 +3916,16 @@ def run(card):
     chain_ckpt = run_checkpoint_chain(metrics, plan, mesh)
     del plan, ps, St, A, asm
     torch.cuda.empty_cache()
-    run_dd_slice(card, mesh, kernels, metrics)
+    t_parallel_kl = run_dd_slice(card, mesh, kernels, metrics)
     torch.cuda.empty_cache()
     un = run_unstructured(card, metrics)
     run_unstructured_dd(card, metrics)
     run_utils(card, metrics, un, chain_ckpt)
     del un
+    torch.cuda.empty_cache()
+    seconds = {"parallel_kl": t_parallel_kl, **run_parallel(card)}
+    emit("parallel_total", seconds=sum(seconds.values()), phases=seconds,
+         card=card)
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():

@@ -2,7 +2,7 @@
 
 The JAX package stays the reference; this package mirrors its module layout
 (`fem/`, `ops/`, `solvers/`, `precond/`, `samplers/`, `kl/`,
-`quantization/`, `utils/`, `chains.py`, `dd_chains.py`) so each counterpart
+`quantization/`, `utils/`, `parallel/`, `chains.py`, `dd_chains.py`) so each counterpart
 is easy to find.
 It imports torch, numpy and scipy only, never jax or `krylov_spdes_tpu`.
 The Pallas kernels of the JAX package become hand-written CUDA C++ kernels
@@ -14,7 +14,7 @@ version.
 """
 
 from . import config as _config  # noqa: F401
-from . import (chains, dd_chains, entry, fem, kl, ops, precond,  # noqa: F401
-               quantization, samplers, solvers, utils)
+from . import (chains, dd_chains, entry, fem, kl, ops, parallel,  # noqa: F401
+               precond, quantization, samplers, solvers, utils)
 
 __version__ = "0.1.0"

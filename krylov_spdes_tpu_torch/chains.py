@@ -5,7 +5,8 @@ Port of `krylov_spdes_tpu/chains.py`. One chain step = RW-Metropolis draw
 -> exp(field) -> dense stencil assembly -> eigDef-PCG with the recycled
 deflation basis, every tensor staying on the device of the plan. The solver
 loops are host loops (one flag read back per iteration); the chain axis of
-the batched step is a batch dimension written out.
+the batched step is a batch dimension written out, and the sharded step's
+is split over the ranks of a mesh (`parallel/`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from .config import config
 from .fem.stencil_assembly import (StencilAssemblyPlan,
                                    make_stencil_operator, stencil_assemble)
 from .ops.stencil import stencil_matvec_batched
+from .parallel.sharding import all_gather_cat
 from .samplers.samplers import (SamplerState, _draw_mc, _draw_mcmc,
                                 make_generator, prepare_mcmc_sampler,
                                 synthesize)
@@ -205,6 +207,54 @@ def seed_chains_batched(plan: StencilAssemblyPlan, states: SamplerState,
            for c in range(len(states.gen))]
     return (torch.stack([W for W, _ in out]),
             torch.tensor([it for _, it in out], dtype=torch.int32))
+
+
+def gather_chains(mesh, axis, states: SamplerState, local):
+    """Global out: the chains this rank ran along `axis` (one (state, W',
+    it, proposals) each) and every other rank's, whole on every rank. Every
+    chain's generator takes the state its rank left it in, so the next
+    step continues each stream as the single-chain step would."""
+    dev = states.xi.device
+    cat = lambda x: all_gather_cat(x, mesh, axis)  # noqa: E731
+    st = [s for s, _, _, _ in local]
+    xi = cat(torch.stack([s.xi for s in st]))
+    g = cat(torch.stack([s.g for s in st]))
+    W = cat(torch.stack([Wn for _, Wn, _, _ in local]))
+    its = cat(torch.tensor([[int(it), int(cnt)] for _, _, it, cnt in local],
+                           dtype=torch.int32, device=dev))
+    gen = cat(torch.stack([s.gen.get_state() for s in st]).to(dev)).cpu()
+    for c, gs in enumerate(gen):
+        # a copy of its own: set_state reads a view's storage from its
+        # start (a row past the first crashes the process)
+        states.gen[c].set_state(gs.clone())
+    return dataclasses.replace(states, xi=xi, g=g), W, its[:, 0], its[:, 1]
+
+
+def make_sharded_chain_step(mesh, plan: StencilAssemblyPlan, M="jacobi",
+                            nvec: int = 20, spdim: int = 61,
+                            maxit: int = 500, rtol: float | None = None,
+                            basis_dtype=None, axis: str = "chain"):
+    """Chain parallelism over the mesh (P4, SURVEY.md §2.2: the TPU-native
+    Example17_Pll): each rank along `axis` runs the SEQUENTIAL recycled
+    step on its block of chains, one after the other (the JAX package's
+    `lax.scan` within a shard), so per-chain device traffic stays on its
+    rank. No sum crosses ranks inside a solve.
+
+    states: `prepare_chain_states` output, the same on every rank, with
+    nchains divisible by the axis size; W: (nchains, n_full, nvec). Returns
+    step(states, W) -> (states, W', its (nchains,), proposals (nchains,)),
+    all whole on every rank (`gather_chains`)."""
+    rtol = effective_rtol(plan.factors.dtype, rtol)
+    basis_dtype = _default_basis_dtype(plan, basis_dtype)
+
+    def step(states: SamplerState, W):
+        mine = range(len(states.gen))[mesh.block(axis, len(states.gen))]
+        local = [_chain_step_core(plan, chain_state(states, c), W[c], M,
+                                  nvec, spdim, maxit, rtol, basis_dtype)
+                 for c in mine]
+        return gather_chains(mesh, axis, states, local)
+
+    return step
 
 
 def run_chains_batched(plan: StencilAssemblyPlan, states, nsmp: int,

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .config import resolve
+from .dd_chains import ShardedDDPlan
 from .fem.bc import DirichletMaps
 from .fem.dd import DDAssemblyPlan, DDPartition
 from .fem.dd_stencil import DDStencilPlan
@@ -94,7 +95,7 @@ def dd_partition(**fields) -> DDPartition:
                           for k, v in fields.items() if k in names})
 
 
-_DD_INDEX = {"cells", "eflat", "tgt_dom", "tgt_loc", "bI_slot", "bI_elem",
+_DD_INDEX = {"cells", "eflat", "tgt", "tgt_dom", "tgt_loc", "bI_slot", "bI_elem",
              "bG_slot", "bG_elem", "sizes_I", "sizes_G", "h_arr", "w_arr",
              "gg_tgt", "gg_ceidx", "gamma_idx", "ig_src", "ig_tgt", "g2g",
              "gammad_to_gamma", "perm", "iperm", "idx_D", "idx_E", "sel_D",
@@ -126,6 +127,14 @@ def dd_assembly_plan(device=None, dtype=None, **fields) -> DDAssemblyPlan:
     pairs carry across as they are."""
     device, dtype = resolve(device, dtype)
     return DDAssemblyPlan(**_dd_fields(DDAssemblyPlan, fields, device, dtype))
+
+
+def sharded_dd_plan(device=None, dtype=None, **fields):
+    """The port's ShardedDDPlan from the numpy fields of the JAX package's
+    (`sharded_dd_plan(**numpy_fields(splan_j))`): the padded per-shard
+    tables as they are, index tables as int64."""
+    device, dtype = resolve(device, dtype)
+    return ShardedDDPlan(**_dd_fields(ShardedDDPlan, fields, device, dtype))
 
 
 def dd_stencil_plan(device=None, dtype=None, **fields) -> DDStencilPlan:

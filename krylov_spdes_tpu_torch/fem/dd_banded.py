@@ -28,6 +28,7 @@ through `OrderedScatter`, so an apply and a refill repeat bit for bit.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 from functools import partial
 
 import numpy as np
@@ -116,6 +117,8 @@ class SchurOperatorBandedInt:
     n_gamma: int
     nI: int
     gamma_gather: torch.Tensor | None = None   # see gamma_gather_table
+    psum: Callable | None = None               # as in SchurOperator
+    doms: slice | None = None
 
     def __post_init__(self):
         if self.gamma_gather is None:

@@ -25,6 +25,12 @@ recycled solver applies every iteration and harvests its basis from. Here
 precomputed (n_gamma, max multiplicity) table and sums them along the last
 axis, so an apply repeats bit for bit.
 
+An operator whose subdomains are split over ranks
+(`parallel.sharding.shard_schur_operator`) holds its rank's slice of the
+blocks and a `psum`: every Γ sum below is the fixed-order local sum, then
+the psum over the ranks (also in a fixed order), and `get_schur_rhs` takes
+the rank's rows (`doms`) of a global b_I.
+
 TF32 stays off in every function (`f32_exact`): at reduced precision the
 Schur blocks carry ~1e-3 relative error and float32 solves stall at maxit.
 """
@@ -32,6 +38,7 @@ Schur blocks carry ~1e-3 relative error and float32 solves stall at maxit.
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 from functools import partial
 
 import numpy as np
@@ -69,6 +76,13 @@ def gamma_sum(table: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return flat[..., table].sum(dim=-1)
 
 
+def _gamma_total(S, vals):
+    """Σ over all of S's subdomains into Γ: `gamma_sum`, then, on an operator
+    sharded over ranks, the psum over them."""
+    part = gamma_sum(S.gamma_gather, vals)
+    return part if S.psum is None else S.psum(part)
+
+
 def _mv(Mat, v):
     """(..., i, j) · (..., j) -> (..., i)."""
     return (Mat @ v[..., None])[..., 0]
@@ -90,6 +104,10 @@ class SchurOperator:
     gamma_cnt: torch.Tensor       # (n_gamma,)
     n_gamma: int
     gamma_gather: torch.Tensor | None = None   # see gamma_gather_table
+    # sharded over ranks: the sum over the ranks' Γ parts, and the rank's
+    # subdomains (parallel.sharding.shard_schur_operator)
+    psum: Callable | None = None
+    doms: slice | None = None
 
     def __post_init__(self):
         if self.gamma_gather is None:
@@ -129,6 +147,8 @@ class SchurOperatorBT:
     gamma_cnt: torch.Tensor
     n_gamma: int
     gamma_gather: torch.Tensor | None = None
+    psum: Callable | None = None
+    doms: slice | None = None
 
     __post_init__ = SchurOperator.__post_init__
     matvec = SchurOperator.matvec
@@ -258,14 +278,16 @@ def schur_matvec(S, x):
     t1 = _mv(S.A_GGd, xd)
     w = S.interior_apply_inv(_mv(S.A_IG, xd))               # A_II⁻¹ A_IΓ x_d
     t2 = _mtv(S.A_IG, w)
-    return gamma_sum(S.gamma_gather, (t1 - t2) * S.gmask)
+    return _gamma_total(S, (t1 - t2) * S.gmask)
 
 
 @f32_exact
 def get_schur_rhs(S, b_I, b_G):
     """b_schur = b_Γ − Σ_d scatter_d(A_IΓdᵀ A_IId⁻¹ b_Id)  (reference :835)."""
+    if S.doms is not None:
+        b_I = b_I[..., S.doms, :]
     w = _mtv(S.A_IG, S.interior_apply_inv(b_I)) * S.gmask
-    return b_G - gamma_sum(S.gamma_gather, w)
+    return b_G - _gamma_total(S, w)
 
 
 @f32_exact
@@ -278,11 +300,13 @@ def assemble_local_schurs(S):
 
 
 @f32_exact
-def _schur_matvec_assembled(Sd, g2g, gmask, gather, x):
+def _schur_matvec_assembled(Sd, g2g, gmask, gather, x, psum=None):
     """The assembled apply, x (n_gamma,) with Sd (ndom, nG, nG), or a batch
-    x (B, n_gamma) with Sd (B, ndom, nG, nG)."""
+    x (B, n_gamma) with Sd (B, ndom, nG, nG); `psum` sums the Γ parts of
+    ranks that hold other subdomains."""
     xd = x[..., g2g] * gmask
-    return gamma_sum(gather, _mv(Sd, xd) * gmask)
+    y = gamma_sum(gather, _mv(Sd, xd) * gmask)
+    return y if psum is None else psum(y)
 
 
 def assembled_schur_operator(S, Sd=None):
@@ -293,7 +317,7 @@ def assembled_schur_operator(S, Sd=None):
     if Sd is None:
         Sd = assemble_local_schurs(S)
     return partial(_schur_matvec_assembled, Sd, S.gammad_to_gamma, S.gmask,
-                   S.gamma_gather)
+                   S.gamma_gather, psum=S.psum)
 
 
 @f32_exact
@@ -361,11 +385,13 @@ def _masked_pinv(Sd, gmask, return_kept: bool = False):
 
 
 @f32_exact
-def _nn_apply(PiSd, g2g, gmask, gather, cnt_inv, r):
+def _nn_apply(PiSd, g2g, gmask, gather, cnt_inv, r, psum=None):
     """Multiplicity-weighted local pinv applies, r (n_gamma,) or, with
-    PiSd (B, ndom, nG, nG), a batch r (B, n_gamma)."""
+    PiSd (B, ndom, nG, nG), a batch r (B, n_gamma); `psum` as in
+    `_schur_matvec_assembled`."""
     rd = (r * cnt_inv)[..., g2g] * gmask
-    return gamma_sum(gather, _mv(PiSd, rd) * gmask) * cnt_inv
+    z = gamma_sum(gather, _mv(PiSd, rd) * gmask)
+    return (z if psum is None else psum(z)) * cnt_inv
 
 
 def prepare_neumann_neumann_schur_precond(S, Sd=None):
@@ -377,4 +403,4 @@ def prepare_neumann_neumann_schur_precond(S, Sd=None):
         Sd = assemble_local_schurs(S)
     PiSd = _masked_pinv(Sd, S.gmask)
     return partial(_nn_apply, PiSd, S.gammad_to_gamma, S.gmask,
-                   S.gamma_gather, 1.0 / S.gamma_cnt)
+                   S.gamma_gather, 1.0 / S.gamma_cnt, psum=S.psum)

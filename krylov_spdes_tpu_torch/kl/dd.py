@@ -32,6 +32,7 @@ import torch
 
 from ..config import resolve
 from ..fem.mesh import element_geometry
+from ..parallel.sharding import all_gather_cat
 from .synthesis import trim_and_order
 
 
@@ -132,28 +133,42 @@ def _local_covariance(cov, Mloc, coords, maskf):
 
 def solve_local_kls(sub: KLSubdomains, points, cov, nev: int,
                     relative: float = 0.99, verbose: bool = False,
-                    dom_chunk: int | None = None):
+                    dom_chunk: int | None = None, mesh=None):
     """Batched local KL eigensolves + per-domain energy truncation
     (solve_local_kl, reference :657-738). Returns (lam_d (ndom, m_max),
     phi_d (ndom, n_max, m_max), m_d (ndom,)) as numpy with zero-padded
     trailing modes, and the total expected energy Σ_d area_d·cov(c_d,c_d).
 
     `dom_chunk` processes subdomains in chunks of that size: the covariance
-    blocks are O(ndom · n_max²)."""
+    blocks are O(ndom · n_max²). With `mesh` (parallel.Mesh), each rank
+    along its 'dom' axis solves a contiguous share of the subdomains, and
+    the eigenpairs are all-gathered."""
     dtype, device = sub.M_local.dtype, sub.M_local.device
     coords_all, maskf_all = _padded_coords(sub, points, dtype, device)
 
-    step = dom_chunk or sub.ndom
-    ws, phis = [], []
-    for s in range(0, sub.ndom, step):
-        e = min(s + step, sub.ndom)
+    lo, hi = 0, sub.ndom
+    if mesh is not None:
+        per = -(-sub.ndom // mesh.axis_size("dom"))
+        lo = min(sub.ndom, mesh.index("dom") * per)
+        hi = min(sub.ndom, lo + per)
+    k = min(nev, sub.n_max)
+    ws = [torch.zeros((0, k), dtype=dtype, device=device)]
+    phis = [torch.zeros((0, sub.n_max, k), dtype=dtype, device=device)]
+    step = dom_chunk or max(hi - lo, 1)
+    for s in range(lo, hi, step):
+        e = min(s + step, hi)
         Mloc = sub.M_local[s:e]
         C = _local_covariance(cov, Mloc, coords_all[s:e], maskf_all[s:e])
         w_c, phi_c = _local_generalized_eigh(C, Mloc, maskf_all[s:e])
-        ws.append(_host(w_c)[:, :nev])
-        phis.append(_host(phi_c)[:, :, :nev])
-    w = np.concatenate(ws, axis=0)
-    phi = np.concatenate(phis, axis=0)
+        ws.append(w_c[:, :nev])
+        phis.append(phi_c[:, :, :nev])
+    w, phi = torch.cat(ws), torch.cat(phis)
+    if mesh is not None:
+        pad = lambda t: torch.cat([t, t.new_zeros(  # noqa: E731
+            (per - t.shape[0],) + t.shape[1:])])
+        w = all_gather_cat(pad(w), mesh, "dom")[:sub.ndom]
+        phi = all_gather_cat(pad(phi), mesh, "dom")[:sub.ndom]
+    w, phi = _host(w), _host(phi)
 
     # per-domain truncation (energy rule, reference :705-718)
     c = torch.as_tensor(sub.centers, dtype=dtype, device=device)
@@ -306,19 +321,18 @@ def compute_dd_kl(cells, points, epart, ndom, cov, nev: int,
                   forget: float = -1.0, verbose: bool = False,
                   device_mesh=None, dom_chunk: int | None = None,
                   dtype=None, device=None):
-    """End-to-end two-level KL (the reference pipeline of Example04).
-    `device_mesh` (the JAX package's sharding of the local eigensolves over
-    a device mesh) is not ported: ROADMAP §1 item 17."""
-    if device_mesh is not None:
-        raise NotImplementedError(
-            "compute_dd_kl(device_mesh=) shards over a device mesh, which "
-            "is not ported yet (ROADMAP §1 item 17)")
+    """End-to-end two-level KL (the reference pipeline of Example04). With
+    `device_mesh` (a parallel.Mesh), the batched local eigensolves, the
+    dominant stage, split over its 'dom' ranks: the `pll_compute_kl` of
+    Example05 (C15), a static split in place of the reference's dynamic
+    master-worker scheduler. Every rank returns the whole result."""
     sub = set_kl_subdomains(cells, points, epart, ndom, dtype=dtype,
                             device=device)
     lam_d, phi_d, m_d, energy = solve_local_kls(sub, points, cov, nev,
                                                 relative=relative_local,
                                                 verbose=verbose,
-                                                dom_chunk=dom_chunk)
+                                                dom_chunk=dom_chunk,
+                                                mesh=device_mesh)
     K = assemble_reduced_covariance(sub, points, cov, phi_d, forget=forget)
     return solve_global_reduced_kl(points.shape[0], K, energy, sub, phi_d,
                                    relative=relative_global, verbose=verbose)

@@ -16,16 +16,18 @@ round trips between stages:
       (λ_d, φ_d, ρ_d = M φ_d): the O(n_max²) mass and covariance blocks live
       only inside one chunk.
     - stage B: the screened pair list in chunks, each computing the tiles
-      K_{dd'} = ρ_dᵀ Ĉ_{dd'} ρ_{d'} and writing them into K.
+      K_{dd'} = ρ_dᵀ Ĉ_{dd'} ρ_{d'} and writing them into K. With a mesh
+      (`mesh=`, parallel.Mesh) the pair list is split over all its ranks
+      and the partial K's merge with ONE psum: the reference's
+      dynamic_mapreduce!(+, K).
 
 Truncation semantics match the reference: local modes are kept while the
 running energy is below relative_local·area_d·cov(c_d,c_d) (:705-718), the
 crossing mode included; kept modes are M-renormalized.
 
-The JAX package shards both stages over a device mesh (`mesh=`); that is
-not ported (ROADMAP §1 item 17), and `local_eig="auto"` resolves as the JAX
-package does off a TPU: the dense batched eigh. The randomized local
-eigensolver stays reachable as `local_eig="randomized"`.
+`local_eig="auto"` resolves as the JAX package does off a TPU: the dense
+batched eigh. The randomized local eigensolver stays reachable as
+`local_eig="randomized"`.
 """
 
 from __future__ import annotations
@@ -38,15 +40,10 @@ import torch
 
 from ..config import resolve
 from ..fem.mesh import element_geometry
+from ..parallel.sharding import AXES, psum
 from ..solvers.base import f32_exact
 from .dd import (KLSubdomains, _local_covariance, _local_generalized_eigh,
                  _padded_coords, solve_global_reduced_kl)
-
-
-def _item17(what):
-    return NotImplementedError(
-        f"{what}(mesh=) shards over a device mesh, which is not ported yet "
-        "(ROADMAP §1 item 17)")
 
 
 @dataclasses.dataclass
@@ -278,16 +275,25 @@ def reduced_covariance_device(tables: KLDomTables, points, rho, cov,
     in chunks of pair_chunk pairs, written into K on the device. The real
     pairs name distinct blocks, so each tile (and, off the diagonal, its
     transpose) is written by assignment; the JAX package's padding pairs,
-    which all add zeros to block (0, 0), are not formed. Returns the
-    (ndom·m, ndom·m) K."""
-    if mesh is not None:
-        raise _item17("reduced_covariance_device")
+    which all add zeros to block (0, 0), are not formed.
+
+    With `mesh` (parallel.Mesh) the pairs split over all its ranks as in
+    the JAX package (shard s takes pairs [s·per, (s+1)·per), per a whole
+    number of chunks), each rank writes its tiles into a zero K, and ONE
+    psum merges them: the reference's dynamic_mapreduce!(+, K)
+    (KarhunenLoevePllDomainDecomposition.jl:513-537). Returns the
+    (ndom·m, ndom·m) K, on every rank."""
     dtype = dtype or rho.dtype
     device = rho.device
     ndom, n_max, m_max = rho.shape
     rho = rho.to(dtype)
     pairs = torch.as_tensor(screened_pairs(tables, cov, forget),
                             device=device)
+    if mesh is not None:
+        nshard = mesh.axis_size(AXES)
+        per = -(-pairs.shape[0] // (pair_chunk * nshard)) * pair_chunk
+        s = mesh.index(AXES)
+        pairs = pairs[s * per:(s + 1) * per]
     coords, maskf = _padded_coords(tables, points, dtype, device)
 
     K = rho.new_zeros((ndom, ndom, m_max, m_max))
@@ -299,6 +305,8 @@ def reduced_covariance_device(tables: KLDomTables, points, rho, cov,
         K[pi, pj] = Kb
         off = pi != pj
         K[pj[off], pi[off]] = Kb[off].transpose(1, 2)
+    if mesh is not None:
+        K = psum(K, mesh, AXES)
     return K.permute(0, 2, 1, 3).reshape(ndom * m_max, ndom * m_max)
 
 
@@ -316,14 +324,14 @@ def compute_dd_kl_device(cells, points, epart, ndom, cov, nev: int,
                          local_eig: str = "auto", dtype=None, device=None,
                          Y0=None, generator=None):
     """End-to-end device-resident two-level KL (pll_compute_kl analogue,
-    reference :457-614). Returns (Λ, Ψ) as numpy.
+    reference :457-614). Returns (Λ, Ψ) as numpy. With `mesh` the reduced
+    covariance (stage B) splits over its ranks, as in the JAX package, and
+    every rank returns the whole result.
 
     With verbose=True prints a per-stage wall-clock breakdown (tables /
     local eigensolves / reduced covariance / reduced eigensolve +
     projection), each stage's device work finished before its clock
     stops."""
-    if mesh is not None:
-        raise _item17("compute_dd_kl_device")
     device, dtype = resolve(device, dtype)
     t0 = time.perf_counter()
     tables = build_kl_tables(cells, points, epart, ndom)
@@ -339,7 +347,7 @@ def compute_dd_kl_device(cells, points, epart, ndom, cov, nev: int,
 
     t0 = time.perf_counter()
     K = reduced_covariance_device(tables, points, rho, cov, forget=forget,
-                                  pair_chunk=pair_chunk)
+                                  pair_chunk=pair_chunk, mesh=mesh)
     _sync(K)
     t_b = time.perf_counter() - t0
 

@@ -248,19 +248,3 @@ def test_draw_dd_matches_jax():
     xi_g, g_g = tdd.draw_dd(st, lam, Vr, phi_d, generator=gen)
     again = tdd.draw_dd(st, lam, Vr, phi_d, xi=xi_g)[1]
     np.testing.assert_array_equal(g_g.numpy(), again.numpy())
-
-
-def test_sharded_arguments_raise():
-    """The JAX package's device-mesh sharding is ROADMAP §1 item 17."""
-    mesh, epart, ndom, _, ct = _problem(nn=200, ndom=4)
-    tables = tdev.build_kl_tables(mesh.cells, mesh.points, epart, ndom)
-    rho = torch.zeros(ndom, tables.n_max, 3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdd.compute_dd_kl(mesh.cells, mesh.points, epart, ndom, ct, nev=5,
-                          device_mesh=object(), **CPU64)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdev.reduced_covariance_device(tables, mesh.points, rho, ct,
-                                       mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdev.compute_dd_kl_device(mesh.cells, mesh.points, epart, ndom, ct,
-                                  nev=5, mesh=object(), **CPU64)
