@@ -5,8 +5,9 @@ preconditioned solves of Examples 06, 07 and 09, the KL basis (single-domain
 and two-level), Example 11's multiple right-hand sides, Example 17's
 certified recyclers, the quantized preconditioner banks of Examples 13, 14,
 19 and 20, the unstructured path (Delaunay mesh, RCM-banded operator,
-banded AMG, banded DD interiors), utils, and the sharded layouts over
-torch.distributed (several ranks on this one card).
+banded AMG, banded DD interiors), utils, the sharded layouts over
+torch.distributed (several ranks on this one card), and the example
+drivers (krylov_spdes_tpu_torch/examples/) as a user calls them.
 
     python3 chip_smoke.py
 
@@ -103,8 +104,10 @@ Phases:
                 b within 5% of the range its own plain version spans on the
                 same right-hand sides, its shared-memory plan and barriers;
                 main_path_h, with H's count at 0: stencil_cg on the bench
-                system and on the realizations' operators; kernel_b_large:
-                one sweep at 1000 x 1000 vs its plain version, L2-cold;
+                system and on the realizations' operators; kernel_a_large:
+                kernel A at 1000 x 1000 (ex10's grid) vs its plain version,
+                max rel err 1e-6; kernel_b_large: one sweep at 1000 x 1000
+                vs its plain version, L2-cold;
                 kernel_h_large, kernel_c_large, kernel_d_large: 1000 x 1000,
                 where the planes do not fit in shared memory, vs their plain
                 versions over 1 and 8 iterations, bit for bit, µs an
@@ -262,9 +265,36 @@ Phases:
      several ranks on this card run gloo on card-resident tensors, and no
      phase can show a speed-up. A rank that fails or outlives its timeout
      fails the run.
+ 12. drivers    kernel_a_drivers: kernel A against its plain version at
+                the drivers' 4000-node grid (max rel err 1e-6); every
+                example driver of krylov_spdes_tpu_torch/examples/
+                (DRIVER_RUNS: 23 runs of the 18 drivers and their arms)
+                called in this process through main(argv) on the card at
+                the drivers' default width, get_mesh(4000) in 20
+                subdomains (ex10: 1M nodes), depth cut as drivers_cuts
+                lists, the KL basis built once (ex02) and shared through
+                build_kl's cache under build/chip_smoke/drivers/; one
+                `driver` line each: seconds, the archives' names, keys and
+                integer entries, the solves by solver, the certified
+                solves' float64 true residuals, kernel A's launches. Fails
+                if a driver raises, a solve reaches its maxit, a certified
+                solve's float64 residual (computed apart from its
+                certificate) exceeds 1e-7, ex03's cross-checks exceed
+                EX03_BOUNDS, a StencilOp is applied outside a solve, or
+                kernel A's launches differ from the StencilOp applies or
+                from what the solves' loops imply (implied_applies: `it`
+                for CG; eigPCG adds spdim a restart, the deflated loops
+                nvec + 1); a CG solve through a StencilOp (ex10's) is
+                held to the same CG with kernel A's plain version: x
+                within 1e-3, float64 residual within twice the plain
+                one's; drivers_cli: ex01 as
+                `python -m krylov_spdes_tpu_torch.examples.ex01_elliptic_pde`
+                in a process of its own, without --cpu: exit 0, `saved`,
+                device cuda; drivers_total: the phase's seconds
  13. kernels    one {"kernels": [...]} line with each kernel's launches on
-                its main path (all must be > 0; A's count includes the samg arm of
-                ex06_certified, printed there on its own) and its times
+                its main path (all must be > 0; A's count includes the samg
+                arm of ex06_certified and the drivers phase, each printed
+                there on its own) and its times
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero; so does a host without a CUDA device, or a directory without the
@@ -1272,8 +1302,10 @@ def large_system(nnode=1000000):
 
 
 def run_large(card):
-    """Kernel B at 1000 x 1000 (kernel_b_large: against its plain version,
-    timed L2-cold), then kernels H, C and D there, where a band's planes do
+    """Kernel A at 1000 x 1000 against its plain version (kernel_a_large,
+    the shape of ex10's solve in the drivers phase), kernel B there
+    (kernel_b_large: against its plain version, timed L2-cold), then
+    kernels H, C and D there, where a band's planes do
     not fit in shared memory beside its vectors and are read from global
     memory: each against its plain version over 1 and 8 iterations (as at
     500 x 500), a fixed-count solve twice bit for bit, and the time an
@@ -1281,6 +1313,7 @@ def run_large(card):
     from krylov_spdes_tpu_torch.ops import fused_cg as fc
     from krylov_spdes_tpu_torch.ops import pallas_cg as pc
     St, b = large_system()
+    check_kernel_a_at("kernel_a_large", St, card)
     ps = fc.build_padded_stencil(St)
     bp = fc.pad_vec(ps, b)
     # kernel B at this size: against its plain version, timed L2-cold
@@ -3637,6 +3670,394 @@ def run_parallel(card, dev="cuda", nnode=NNODE, dd_nnode=DD_NNODE,
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# Slice 11: the example drivers (krylov_spdes_tpu_torch/examples/), called in
+# this process through their main(argv) at their default mesh width
+# (get_mesh(4000) in 20 subdomains from base_parser; 1M nodes for ex10), and
+# ex01 once as a command line. Depth is cut to hold the phase to a minute
+# or two: DRIVER_RUNS gives each cut beside the default it replaces.
+# ---------------------------------------------------------------------------
+
+DRV_DIR = SCRATCH / "drivers"
+# (driver, flags, {depth flag: (value here, the driver's default)})
+DRIVER_RUNS = (
+    ("ex01_elliptic_pde", [], {}),
+    ("ex01_elliptic_pde", ["--precond", "stencil-amg"], {}),
+    ("ex01_elliptic_pde", ["--mesh", "delaunay", "--op", "banded"], {}),
+    ("ex02_karhunen_loeve", [], {}),
+    # the experimental arms (--with-ddlr, --with-nn-induced: the paths the
+    # reference keeps commented out) run in the CPU tests only: without
+    # deflation the NN-induced PCG reaches maxit at this size in either
+    # package
+    ("ex03_dd_schur", [], {}),
+    ("ex04_kl_dd", [], {}),
+    ("ex06_pcg_stochastic", ["--strategies", "amg,lorasc,bj,samg",
+                             "--certify"], {"--nreals": (2, 20)}),
+    ("ex07_pcg_schur_stochastic", ["--certify", "--rtol", "1e-5"],
+     {"--nreals": (2, 20)}),
+    ("ex09_defpcg_mcmc", ["--certify"], {"--nchains": (1, 3),
+                                         "--nsmp": (3, 5)}),
+    ("ex10_large_deterministic", [], {}),
+    ("ex11_multiple_rhs", [], {"--nreals": (8, 20)}),
+    ("ex11_multiple_rhs", ["--schur", "--block-rhs", "4"],
+     {"--nreals": (8, 20)}),
+    ("ex12_quantization", [], {"--nreals": (4, 20)}),
+    ("ex13_clvq", [], {}),
+    ("ex14_shepard", [], {"--nreals": (4, 20)}),
+    ("ex15_sampling_overcost", [], {"--nreals": (4, 20)}),
+    ("ex16_mcmc_realizations", [], {}),
+    ("ex17_recyclers_mcmc", ["--certify"], {"--nchains": (1, 2),
+                                            "--nsmp": (3, 10)}),
+    ("ex17_recyclers_mcmc", ["--fast", "--layout", "vmap"],
+     {"--nsmp": (4, 10)}),
+    ("ex17_recyclers_mcmc", ["--fast", "--layout", "batched"],
+     {"--nsmp": (4, 10)}),
+    ("ex18_clustering2d", [], {}),
+    ("ex19_truncated_preconds", [], {}),
+    ("ex20_quantized_precond", [], {"--nreals": (8, 20)}),
+)
+# Example 03's cross-checks in float32: ten times the values of the driver
+# in float32 on the CPU at the same size (apply 4.77e-6, solution 1.45e-7;
+# python3 krylov_spdes_tpu_torch/bench/ex03_float32.py)
+EX03_BOUNDS = {"apply_err": 4.8e-5, "sol_err": 1.5e-6}
+# the solver entry points the drivers reach: (module, names). chains and
+# solvers/refine call the loops themselves, so their names are watched too
+WATCHED_SOLVERS = (("solvers.cg", ("cg", "pcg")), ("solvers.eigcg",
+                                                   ("eigpcg",)),
+                   ("solvers.defcg", ("defpcg", "eigdefpcg")),
+                   ("solvers.initcg", ("initpcg",)),
+                   ("solvers.block_cg", ("block_pcg",)),
+                   ("solvers.recyclers", ("rrdefpcg", "hrdefpcg",
+                                          "trrrdefpcg", "trhrdefpcg",
+                                          "lotrrrdefpcg", "lotrhrdefpcg")),
+                   ("solvers.refine", ("_pcg_impl", "pcg", "defpcg")),
+                   ("chains", ("_eigpcg_impl", "_eigdef_impl")))
+
+
+def implied_applies(name, it, args, restarts):
+    """The applies of A that a solver's loop makes in `it` iterations
+    (solvers/cg.py, eigcg.py, defcg.py): the initial residual and one an
+    iteration after the first, `it` in all; eigPCG adds one a row of V
+    (spdim) at each restart; the deflated loops add their setup, one apply
+    a column of W and a second initial residual (nvec + 1). None for a
+    loop without a count here."""
+    base = name.strip("_").removesuffix("_impl")
+    if base in ("cg", "pcg"):
+        return it
+    if base == "eigpcg":
+        return it + args["spdim"] * restarts
+    if base in ("defpcg", "eigdefpcg", "eigdef"):
+        return it + args["W"].shape[1] + 1
+    return None
+
+
+class DriverWatch:
+    """While a driver runs: every solve through WATCHED_SOLVERS is recorded
+    with its `it`, maxit (0 means the system's size), whether its operator
+    is a StencilOp, the StencilOp applies made inside it (counted at
+    ops/stencil.py's call of the kernel A wrapper, a nested solve's apart)
+    and those its loop implies; every certified solve with a float64
+    residual computed apart from its certificate (the *_true_relres
+    helpers above). The drivers import these names inside main(), so they
+    find the wrapped ones."""
+
+    def __init__(self):
+        import importlib
+        from krylov_spdes_tpu_torch.ops.stencil import StencilOp
+        self.stencil_type = StencilOp
+        self.solves, self.certified, self.applies = [], [], 0
+        self.outside, self.stack, self.saved = 0, [], []
+        mod = lambda name: importlib.import_module(  # noqa: E731
+            f"krylov_spdes_tpu_torch.{name}")
+        for name, fns in WATCHED_SOLVERS:
+            m = mod(name)
+            for fn in fns:
+                self._wrap(m, fn, self._solver)
+        refine = mod("solvers.refine")
+        for fn, relres in (
+                ("refined_pcg", lambda a, r: stencil_true_relres(
+                    a[0], a[1], r.x_df32)),
+                ("refined_pcg_sparse", lambda a, r: sparse_true_relres(
+                    a[0], a[1], r.x_df32)),
+                ("refined_recycled_solve", lambda a, r: sparse_true_relres(
+                    a[0], a[1], r.x_df32)),
+                ("refined_dd_pcg", lambda a, r: dd_true_relres(
+                    a[0], a[1], (a[5], a[6], a[7], a[3], a[4]), r.u_I,
+                    r.x_df32))):
+            self._wrap(refine, fn, partial(self._certified, relres=relres))
+        self._wrap(mod("ops.stencil"), "stencil_spmv", self._counted)
+        self._wrap(mod("solvers.eigcg"), "_apply_rows", self._restart)
+
+    def _wrap(self, m, name, how):
+        fn = getattr(m, name)
+        self.saved.append((m, name, fn))
+        setattr(m, name, how(name, fn))
+
+    def _counted(self, name, fn):
+        def counted(*a):
+            self.applies += 1
+            if self.stack:
+                self.stack[-1]["applies"] += 1
+            else:
+                self.outside += 1
+            return fn(*a)
+        return counted
+
+    def _restart(self, name, fn):
+        def restart(*a):
+            if self.stack:
+                self.stack[-1]["restarts"] += 1
+            return fn(*a)
+        return restart
+
+    def _solver(self, name, fn):
+        import inspect
+        sig = inspect.signature(fn)
+
+        def watched(*a, **kw):
+            bound = sig.bind(*a, **kw)
+            bound.apply_defaults()
+            args = bound.arguments
+            frame = dict(applies=0, restarts=0)
+            self.stack.append(frame)
+            try:
+                r = fn(*a, **kw)
+            finally:
+                self.stack.pop()
+            A, b = args["A"], args.get("b", args.get("B"))
+            St = A if isinstance(A, self.stencil_type) else getattr(
+                A, "__self__", None)
+            stencil = isinstance(St, self.stencil_type)
+            it = int(r.it if hasattr(r, "it") else r[1])
+            rec = dict(name=name, it=it, maxit=args.get("maxit") or b.shape[0],
+                       stencil=stencil, **frame,
+                       implied=implied_applies(name, it, args,
+                                               frame["restarts"])
+                       if stencil else 0)
+            if stencil and name == "cg":
+                rec.update(St=St, b=b, x=r.x, rtol=args["rtol"])
+            self.solves.append(rec)
+            return r
+        return watched
+
+    def _certified(self, name, fn, relres):
+        def watched(*a, **kw):
+            r = fn(*a, **kw)
+            self.certified.append((name, bool(r.breakdown), relres(a, r)))
+            return r
+        return watched
+
+    def close(self):
+        for m, fn, orig in reversed(self.saved):
+            setattr(m, fn, orig)
+
+
+def check_kernel_a_at(phase, St, card):
+    """Kernel A against its plain version on St's planes and a seeded x,
+    max relative error ≤ 1e-6 as in phase 2: a shape that a later phase
+    launches the kernel at."""
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    x = torch.randn(St.n, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    y = sk.stencil_spmv(St.planes, St.dir_diag, x)
+    y0 = sk.stencil_spmv_plain(St.planes, St.dir_diag, x)
+    err = float((y - y0).abs().max())
+    err_rel = err / float(y0.abs().max())
+    check(err_rel <= 1e-6, f"{phase}: kernel A vs plain at {St.H} x {St.W}: "
+                           f"max rel err {err_rel}")
+    emit(phase, H=St.H, W=St.W, max_abs_err=err, max_rel_err=err_rel,
+         tolerance=1e-6, card=card)
+
+
+def hold_stencil_cg(what, s):
+    """A CG solve through a StencilOp (ex10's) against the same CG with
+    kernel A's plain version in the loop: x within 1e-3 and its float64
+    residual (torch's CSR product, stencil_true_relres) within twice the
+    plain solve's, as the main path holds its solves: a float32 x cannot
+    have a float64 residual below about u32·‖|A||x|‖/‖b‖ (f32_floor)."""
+    from krylov_spdes_tpu_torch.ops.stencil_kernel import stencil_spmv_plain
+    from krylov_spdes_tpu_torch.solvers.cg import cg
+    St, b, x = s["St"], s["b"], s["x"]
+    ref = cg(lambda v: stencil_spmv_plain(St.planes, St.dir_diag, v), b,
+             maxit=s["maxit"], rtol=s["rtol"])
+    zero = torch.zeros_like(x)
+    tr = stencil_true_relres(St, b, (x, zero))
+    tr_ref = stencil_true_relres(St, b, (ref.x, zero))
+    err_x = rel(x, ref.x)
+    check(int(ref.it) < s["maxit"], f"{what}: the plain CG reached maxit")
+    check(err_x <= 1e-3, f"{what}: x rel err {err_x} to the plain CG's")
+    check(tr <= max(1e-5, 2 * tr_ref),
+          f"{what}: float64 true residual {tr} / the plain CG's {tr_ref}")
+    return dict(it=s["it"], it_plain=int(ref.it), x_rel_err=err_x,
+                true_relres=tr, true_relres_plain=tr_ref,
+                f32_floor=f32_floor(St, b, x))
+
+
+def driver_archives(out: str):
+    """{file name: {key: array}} of the archives a driver's output says it
+    saved."""
+    paths = [line.split("saved ", 1)[1].strip() for line in out.splitlines()
+             if line.startswith("saved ")]
+    archives = {}
+    for path in paths:
+        with np.load(path) as d:
+            archives[Path(path).name] = {k: d[k] for k in d.files}
+    return archives
+
+
+def run_driver(card, module, flags, cuts, logs):
+    """One driver through its main(argv) on the card, checked; returns its
+    line."""
+    import contextlib
+    import importlib
+    import io
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    argv = list(flags) + [str(x) for f, (v, _) in cuts.items()
+                          for x in (f, v)]
+    drv = importlib.import_module(f"krylov_spdes_tpu_torch.examples.{module}")
+    buf = io.StringIO()
+    log = logs / f"{module}.{'_'.join(a.strip('-') for a in flags)}.log"
+    sk.stencil_spmv.launches = 0
+    watch = DriverWatch()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            drv.main(argv + ["--data-dir", str(DRV_DIR)])
+        torch.cuda.synchronize()
+    except BaseException as e:  # SystemExit too: a driver must not exit
+        log.write_text(buf.getvalue())
+        raise CheckFailed(f"drivers: {module} {' '.join(argv)} raised "
+                          f"{e!r}; its output is in {log}") from e
+    finally:
+        watch.close()
+    seconds = time.perf_counter() - t0
+    launches = sk.stencil_spmv.launches
+    out = buf.getvalue()
+    log.write_text(out)
+    what = f"drivers: {module} {' '.join(argv)}"
+    check("device cuda float32" in out and "saved" in out,
+          f"{what}: no device line or nothing saved")
+    archives = driver_archives(out)
+    for s in watch.solves:
+        check(s["it"] < s["maxit"],
+              f"{what}: a {s['name']} solve reached maxit {s['maxit']}")
+        if s["stencil"]:
+            check(s["implied"] is not None,
+                  f"{what}: {s['name']} through a StencilOp: no apply count "
+                  "for its loop")
+            check(s["applies"] == s["implied"],
+                  f"{what}: a {s['name']} solve applied its StencilOp "
+                  f"{s['applies']} times; its loop implies {s['implied']} "
+                  f"(it {s['it']}, restarts {s['restarts']})")
+        else:
+            check(s["applies"] == 0, f"{what}: a {s['name']} solve on a "
+                                     f"{s['applies']} StencilOp applies")
+    for name, breakdown, tr in watch.certified:
+        check(not breakdown and tr <= CERT_RTOL,
+              f"{what}: {name} certified solve, breakdown {breakdown}, "
+              f"float64 true residual {tr} above {CERT_RTOL}")
+    if "--certify" in flags:
+        check(watch.certified, f"{what}: no certified solve ran")
+    # kernel A: one launch an apply of a StencilOp, every apply inside a
+    # watched solve, and as many as the solves' loops imply
+    implied = sum(s["implied"] for s in watch.solves if s["stencil"])
+    check(watch.outside == 0,
+          f"{what}: {watch.outside} StencilOp applies outside a solve")
+    check(launches == watch.applies == implied,
+          f"{what}: {launches} launches of kernel A, {watch.applies} "
+          f"StencilOp applies, {implied} implied by the solves' loops")
+    extra = {}
+    held = [hold_stencil_cg(what, s) for s in watch.solves
+            if s["stencil"] and s["name"] == "cg"]
+    if held:
+        extra["stencil_cg_against_plain"] = held
+    if module == "ex10_large_deterministic":
+        # its CG alone, timed by the driver between two synchronizes
+        (arc,) = archives.values()
+        extra.update(cg_seconds=float(arc["time_s"][0]),
+                     cg_us_per_iteration=1e6 * float(arc["time_s"][0])
+                     / int(arc["iters"][0]))
+    if module == "ex03_dd_schur":
+        (arc,) = [a for n, a in archives.items() if n.endswith(".ex03.npz")]
+        extra.update({k: float(arc[k]) for k in EX03_BOUNDS})
+        for k, bound in EX03_BOUNDS.items():
+            check(extra[k] <= bound, f"{what}: {k} {extra[k]} above the "
+                                     f"float32 bound {bound}")
+    # the archives' integer entries (the iteration counts among them); a
+    # long one by its shape
+    ints = {f"{name}:{k}": v.tolist() if v.size <= 64 else
+            f"shape {list(v.shape)}" for name, arc in archives.items()
+            for k, v in arc.items() if v.dtype.kind == "i"}
+    by_solver = {}
+    for s in watch.solves:
+        n = by_solver.setdefault(s["name"], dict(solves=0, it=0))
+        n["solves"] += 1
+        n["it"] += s["it"]
+    line = dict(script=f"krylov_spdes_tpu_torch/examples/{module}.py",
+                argv=argv, seconds=seconds, archive_ints=ints,
+                archives={n: sorted(a) for n, a in archives.items()},
+                solves=by_solver,
+                max_it_over_maxit=max((s["it"] / s["maxit"]
+                                       for s in watch.solves), default=None),
+                certified=len(watch.certified),
+                certified_true_relres_max=max(
+                    (tr for _, _, tr in watch.certified), default=None),
+                **extra)
+    if launches:
+        line.update(kernel_a_launches=launches,
+                    kernel_a_launches_implied=implied,
+                    stencil_solves=sum(s["stencil"] for s in watch.solves))
+    emit("driver", **line, card=card)
+    return line
+
+
+def run_drivers(card):
+    """drivers: kernel A against its plain version at the drivers' 4000-node
+    grid, every ported driver at its default mesh width (DRIVER_RUNS), then
+    ex01 as a command line without --cpu. Returns (seconds, kernel A's
+    launches)."""
+    import shutil
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRV_DIR, ignore_errors=True)
+    logs = DRV_DIR / "logs"
+    logs.mkdir(parents=True)
+    check_kernel_a_at("kernel_a_drivers", large_system(4000)[0], card)
+    emit("drivers_cuts", width="the drivers' defaults: --nnode 4000 --ndom 20"
+         " (base_parser), --nnode 1000000 (ex10)",
+         cuts=[dict(script=m, flags=f, cuts={k: dict(here=v, default=d)
+                                             for k, (v, d) in c.items()})
+               for m, f, c in DRIVER_RUNS if c])
+    lines = [run_driver(card, m, f, c, logs) for m, f, c in DRIVER_RUNS]
+
+    # one driver as a user runs it: a process of its own, on the card
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "krylov_spdes_tpu_torch.examples."
+         "ex01_elliptic_pde", "--data-dir", str(DRV_DIR / "cli")],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    (logs / "cli.log").write_text(cli.stdout + cli.stderr)
+    check(cli.returncode == 0 and "saved" in cli.stdout
+          and "device cuda float32" in cli.stdout,
+          f"drivers_cli: exit {cli.returncode}: {cli.stderr[-1500:]}")
+    emit("drivers_cli", argv=["python", "-m", "krylov_spdes_tpu_torch."
+                              "examples.ex01_elliptic_pde", "--data-dir",
+                              "build/chip_smoke/drivers/cli"],
+         returncode=cli.returncode, seconds=time.perf_counter() - t0,
+         device_line=next(line for line in cli.stdout.splitlines()
+                          if line.startswith("device ")),
+         result=next(line for line in cli.stdout.splitlines()
+                     if line.startswith("n=")), card=card)
+    launches = sum(line.get("kernel_a_launches", 0) for line in lines)
+    seconds = time.perf_counter() - t_phase
+    emit("drivers_total", seconds=seconds, runs=len(lines),
+         kernel_a_launches=launches,
+         seconds_per_driver={f"{Path(line['script']).stem} "
+                             f"{' '.join(line['argv'])}".strip():
+                             line["seconds"] for line in lines}, card=card)
+    return seconds, launches
+
+
 def run(card):
     from krylov_spdes_tpu_torch import fem
     from krylov_spdes_tpu_torch.ops import cuda_build
@@ -3926,6 +4347,9 @@ def run(card):
     seconds = {"parallel_kl": t_parallel_kl, **run_parallel(card)}
     emit("parallel_total", seconds=sum(seconds.values()), phases=seconds,
          card=card)
+    torch.cuda.empty_cache()
+    _, drivers_a = run_drivers(card)
+    kernels["A"]["launches"] += drivers_a
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():

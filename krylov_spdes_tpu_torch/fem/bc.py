@@ -50,6 +50,31 @@ def get_dirichlet_inds(points: np.ndarray, point_markers: np.ndarray) -> Dirichl
     return DirichletMaps(free_g2l, dir_g2l, free_l2g, dir_l2g, is_dir)
 
 
+def apply_dirichlet(segments: np.ndarray, points: np.ndarray, A, b_vec,
+                    uexact):
+    """Legacy row/column elimination of Dirichlet nodes on a FULL-size system
+    (reference `apply_dirichlet`, Fem/BoundaryConditions.jl:138-185): zero
+    the node's row and column, move the column into the RHS, put 1 on the
+    diagonal. Host-side: A is a scipy sparse matrix (or anything scipy
+    takes) over ALL nodes, b_vec a vector (a tensor is copied to the host);
+    returns the modified copies (scipy CSR, numpy)."""
+    import scipy.sparse as sp
+    A = sp.lil_matrix(A)
+    if hasattr(b_vec, "detach"):
+        b_vec = b_vec.detach().cpu().numpy()
+    b = np.asarray(b_vec, dtype=float).copy()
+    nodes = np.unique(np.asarray(segments)[:, 0])
+    for nod in nodes:
+        g = uexact(points[nod, 0], points[nod, 1])
+        col = A[:, nod].toarray().ravel()
+        b -= col * g
+        A[nod, :] = 0
+        A[:, nod] = 0
+        A[nod, nod] = 1.0
+        b[nod] = g
+    return sp.csr_matrix(A), b
+
+
 def append_bc(maps: DirichletMaps, u_free, points: np.ndarray, uexact):
     """Re-insert Dirichlet values into the full nodal solution vector
     (Fem/BoundaryConditions.jl:94-134). `u_free` may be a tensor."""

@@ -172,13 +172,17 @@ def _vcycle(npre, npost, hier, omega, r):
 
 def amg_precond(A, max_levels: int = 10, max_coarse: int = 64,
                 theta: float = 0.0, omega_smooth: float = 2.0 / 3.0,
-                npre: int = 1, npost: int = 1, matvec: str = "ell"):
+                npre: int = 1, npost: int = 1, matvec: str = "ell",
+                device=None, dtype=None):
     """One-V-cycle SA-AMG preconditioner (AMGPreconditioner analogue), on
-    the device of A's values when A is a SparseOp."""
+    the device of A's values when A is a SparseOp. A scipy matrix is set up
+    as given (its column order steers the aggregation) and its levels go
+    to `device` (the config's when None); `dtype` is the levels' (A's own
+    when None)."""
     if isinstance(A, SparseOp):
         A_host, device = A.to_scipy(), A.data.device
     else:
-        A_host, device = sp.csr_matrix(A), None
+        A_host = sp.csr_matrix(A)
     hier = amg_setup(A_host, max_levels=max_levels, max_coarse=max_coarse,
-                     theta=theta, matvec=matvec, device=device)
+                     theta=theta, matvec=matvec, device=device, dtype=dtype)
     return functools.partial(_vcycle, npre, npost, hier, omega_smooth)
