@@ -6,8 +6,10 @@ and two-level), Example 11's multiple right-hand sides, Example 17's
 certified recyclers, the quantized preconditioner banks of Examples 13, 14,
 19 and 20, the unstructured path (Delaunay mesh, RCM-banded operator,
 banded AMG, banded DD interiors), utils, the sharded layouts over
-torch.distributed (several ranks on this one card), and the example
-drivers (krylov_spdes_tpu_torch/examples/) as a user calls them.
+torch.distributed (several ranks on this one card), the example drivers
+(krylov_spdes_tpu_torch/examples/) as a user calls them, the multi-rank
+drivers, and the root measurement drivers' twins
+(krylov_spdes_tpu_torch/bench/bench_*.py).
 
     python3 chip_smoke.py
 
@@ -291,10 +293,53 @@ Phases:
                 `python -m krylov_spdes_tpu_torch.examples.ex01_elliptic_pde`
                 in a process of its own, without --cpu: exit 0, `saved`,
                 device cuda; drivers_total: the phase's seconds
- 13. kernels    one {"kernels": [...]} line with each kernel's launches on
+ 13. drivers_ranks  kernel_a_ranks: kernel A against its plain version on
+                2 gloo ranks at the 4000- and 65000-node grids; the
+                multi-rank drivers through main(argv) at the drivers'
+                width (4000 nodes, 20 subdomains), their ranks spawned by
+                parallel.launch (NCCL at one rank, gloo when ranks share
+                the card; every rank must report that backend and a cuda
+                device): ex08 at 1 and 2 ranks, `it` within 2 of the
+                one-rank solve's range over b and 4 last-bit copies of b,
+                x's float64 residual within rtol or twice the float32
+                floor; ex05 on 2 ranks, both pipelines, against the same
+                KL in this process: the leading λ (to the last gap at or
+                below mode 30) and the captured variance within 1e-5, the
+                leading modes' M-cosines ≥ 0.9999, the kept count within
+                2%; ex17 --fast --layout sharded --nchains 2 at 1 and 2
+                ranks, the tables bit-equal to each other and to --layout
+                vmap's, kernel A's launches summed over the ranks equal to
+                ranks x the seeds' applies + the steps' (from vmap's
+                DriverWatch); the harness on 4 ranks, both arms, rows at
+                1, 2, 4 ranks, one psum a matvec and the same psum sites a
+                DD step at every rank count
+ 14. bench_drivers  kernel A at get_mesh(32000)'s and get_mesh(65000)'s
+                grids and kernel E at 65k nodes, nvec 16, spdim 48 and 80
+                against their plain versions; then each
+                krylov_spdes_tpu_torch/bench/bench_*.py through main([]) at
+                its default size (BENCH_NSOLVE 2 of 8) under DriverWatch
+                and a count of kernel E's stretches: every solve below its
+                maxit but the JAX files' capped ones (BENCH_CAPPED) and
+                bench_dd_chain's solves on fields whose float32 interface
+                system NN-PCG does not solve either (float64 does);
+                kernel A's launches equal to the applies the solves imply,
+                kernel E's to the stretches of the solves' loops and the
+                sweep's calls; bench_amg's AMG-PCG and CG against kernel
+                A's plain version (x within 1e-3, `it` in the plain run's
+                range over b and 4 last-bit copies); bench_banded's ELL
+                and banded `it` within 5% and x within 1e-3;
+                bench_vmem_eigdef's x within 1e-3 of the host-looped
+                twin's and `it` within 5% of the twin's range over b and 4
+                last-bit copies
+ 15. kernels    one {"kernels": [...]} line with each kernel's launches on
                 its main path (all must be > 0; A's count includes the samg
-                arm of ex06_certified and the drivers phase, each printed
+                arm of ex06_certified and the drivers, drivers_ranks and
+                bench_drivers phases, E's bench_drivers', each printed
                 there on its own) and its times
+
+`python3 chip_smoke.py drivers_ranks bench_drivers` runs the build and
+those phases alone (no kernel list), and its last line names them in
+place of the "ok" line.
 
 The last line is {"ok": true, "device": {...}}. Any failed check exits
 non-zero; so does a host without a CUDA device, or a directory without the
@@ -3734,6 +3779,13 @@ WATCHED_SOLVERS = (("solvers.cg", ("cg", "pcg")), ("solvers.eigcg",
                    ("chains", ("_eigpcg_impl", "_eigdef_impl")))
 
 
+def solve_base(name):
+    """The loop a solver name runs: an entry point and its `_impl` share
+    one (pcg and _pcg_impl; eigdefpcg and _eigdef_impl)."""
+    base = name.strip("_").removesuffix("_impl")
+    return {"eigdefpcg": "eigdef", "eigdefcg": "eigdef"}.get(base, base)
+
+
 def implied_applies(name, it, args, restarts):
     """The applies of A that a solver's loop makes in `it` iterations
     (solvers/cg.py, eigcg.py, defcg.py): the initial residual and one an
@@ -3761,7 +3813,7 @@ class DriverWatch:
     helpers above). The drivers import these names inside main(), so they
     find the wrapped ones."""
 
-    def __init__(self):
+    def __init__(self, extra=()):
         import importlib
         from krylov_spdes_tpu_torch.ops.stencil import StencilOp
         self.stencil_type = StencilOp
@@ -3769,7 +3821,7 @@ class DriverWatch:
         self.outside, self.stack, self.saved = 0, [], []
         mod = lambda name: importlib.import_module(  # noqa: E731
             f"krylov_spdes_tpu_torch.{name}")
-        for name, fns in WATCHED_SOLVERS:
+        for name, fns in WATCHED_SOLVERS + tuple(extra):
             m = mod(name)
             for fn in fns:
                 self._wrap(m, fn, self._solver)
@@ -3815,15 +3867,18 @@ class DriverWatch:
         sig = inspect.signature(fn)
 
         def watched(*a, **kw):
+            if self.stack and self.stack[-1]["base"] == solve_base(name):
+                return fn(*a, **kw)       # an entry point's own loop
             bound = sig.bind(*a, **kw)
             bound.apply_defaults()
             args = bound.arguments
-            frame = dict(applies=0, restarts=0)
+            frame = dict(applies=0, restarts=0, base=solve_base(name))
             self.stack.append(frame)
             try:
                 r = fn(*a, **kw)
             finally:
                 self.stack.pop()
+            del frame["base"]
             A, b = args["A"], args.get("b", args.get("B"))
             St = A if isinstance(A, self.stencil_type) else getattr(
                 A, "__self__", None)
@@ -3905,6 +3960,52 @@ def driver_archives(out: str):
     return archives
 
 
+def check_watch(what, watch, launches, capped=()):
+    """The holds of a run under DriverWatch: every solve below its maxit
+    (those of the solvers named in `capped` at most at it);
+    kernel A launched once an apply of a StencilOp, every apply inside a
+    watched solve and as many as the solves' loops imply; each certified
+    solve's float64 residual within CERT_RTOL. Returns the implied
+    launches."""
+    for s in watch.solves:
+        check(s["it"] < s["maxit"] or (s["name"] in capped
+                                       and s["it"] == s["maxit"]),
+              f"{what}: a {s['name']} solve reached maxit {s['maxit']}")
+        if s["stencil"]:
+            check(s["implied"] is not None,
+                  f"{what}: {s['name']} through a StencilOp: no apply count "
+                  "for its loop")
+            check(s["applies"] == s["implied"],
+                  f"{what}: a {s['name']} solve applied its StencilOp "
+                  f"{s['applies']} times; its loop implies {s['implied']} "
+                  f"(it {s['it']}, restarts {s['restarts']})")
+        else:
+            check(s["applies"] == 0, f"{what}: a {s['name']} solve on a "
+                                     f"{s['applies']} StencilOp applies")
+    for name, breakdown, tr in watch.certified:
+        check(not breakdown and tr <= CERT_RTOL,
+              f"{what}: {name} certified solve, breakdown {breakdown}, "
+              f"float64 true residual {tr} above {CERT_RTOL}")
+    implied = sum(s["implied"] for s in watch.solves if s["stencil"])
+    check(watch.outside == 0,
+          f"{what}: {watch.outside} StencilOp applies outside a solve")
+    check(launches == watch.applies == implied,
+          f"{what}: {launches} launches of kernel A, {watch.applies} "
+          f"StencilOp applies, {implied} implied by the solves' loops")
+    return implied
+
+
+def by_solver(watch):
+    """{solver: solves, iterations and StencilOp applies} of a watch."""
+    out = {}
+    for s in watch.solves:
+        n = out.setdefault(s["name"], dict(solves=0, it=0, applies=0))
+        n["solves"] += 1
+        n["it"] += s["it"]
+        n["applies"] += s["applies"]
+    return out
+
+
 def run_driver(card, module, flags, cuts, logs):
     """One driver through its main(argv) on the card, checked; returns its
     line."""
@@ -3938,34 +4039,9 @@ def run_driver(card, module, flags, cuts, logs):
     check("device cuda float32" in out and "saved" in out,
           f"{what}: no device line or nothing saved")
     archives = driver_archives(out)
-    for s in watch.solves:
-        check(s["it"] < s["maxit"],
-              f"{what}: a {s['name']} solve reached maxit {s['maxit']}")
-        if s["stencil"]:
-            check(s["implied"] is not None,
-                  f"{what}: {s['name']} through a StencilOp: no apply count "
-                  "for its loop")
-            check(s["applies"] == s["implied"],
-                  f"{what}: a {s['name']} solve applied its StencilOp "
-                  f"{s['applies']} times; its loop implies {s['implied']} "
-                  f"(it {s['it']}, restarts {s['restarts']})")
-        else:
-            check(s["applies"] == 0, f"{what}: a {s['name']} solve on a "
-                                     f"{s['applies']} StencilOp applies")
-    for name, breakdown, tr in watch.certified:
-        check(not breakdown and tr <= CERT_RTOL,
-              f"{what}: {name} certified solve, breakdown {breakdown}, "
-              f"float64 true residual {tr} above {CERT_RTOL}")
+    implied = check_watch(what, watch, launches)
     if "--certify" in flags:
         check(watch.certified, f"{what}: no certified solve ran")
-    # kernel A: one launch an apply of a StencilOp, every apply inside a
-    # watched solve, and as many as the solves' loops imply
-    implied = sum(s["implied"] for s in watch.solves if s["stencil"])
-    check(watch.outside == 0,
-          f"{what}: {watch.outside} StencilOp applies outside a solve")
-    check(launches == watch.applies == implied,
-          f"{what}: {launches} launches of kernel A, {watch.applies} "
-          f"StencilOp applies, {implied} implied by the solves' loops")
     extra = {}
     held = [hold_stencil_cg(what, s) for s in watch.solves
             if s["stencil"] and s["name"] == "cg"]
@@ -3988,15 +4064,10 @@ def run_driver(card, module, flags, cuts, logs):
     ints = {f"{name}:{k}": v.tolist() if v.size <= 64 else
             f"shape {list(v.shape)}" for name, arc in archives.items()
             for k, v in arc.items() if v.dtype.kind == "i"}
-    by_solver = {}
-    for s in watch.solves:
-        n = by_solver.setdefault(s["name"], dict(solves=0, it=0))
-        n["solves"] += 1
-        n["it"] += s["it"]
     line = dict(script=f"krylov_spdes_tpu_torch/examples/{module}.py",
                 argv=argv, seconds=seconds, archive_ints=ints,
                 archives={n: sorted(a) for n, a in archives.items()},
-                solves=by_solver,
+                solves=by_solver(watch),
                 max_it_over_maxit=max((s["it"] / s["maxit"]
                                        for s in watch.solves), default=None),
                 certified=len(watch.certified),
@@ -4058,7 +4129,657 @@ def run_drivers(card):
     return seconds, launches
 
 
-def run(card):
+# ---------------------------------------------------------------------------
+# Slice 12 (1 of 2): the multi-rank drivers (ex08, ex05, ex17 --layout
+# sharded, the scaling harness) through their main(argv) at the drivers'
+# default width, get_mesh(4000) in 20 subdomains. Their ranks are spawned
+# by parallel.launch: a world of one runs NCCL, several ranks share this one
+# card over gloo (the drivers' rule, named on their first line), so every
+# time across ranks measures the collectives and the ranks' contention, not
+# a split of the work.
+# ---------------------------------------------------------------------------
+
+RANK_DRIVER_TIMEOUT = 600.0   # examples.common.RANK_TIMEOUT here
+EX08_ENVELOPE = 4             # last-bit copies of b behind ex08's `it` range
+# (driver, flags, {depth flag: (value here, the driver's default)})
+RANK_DRIVER_CUTS = {
+    "ex17_recyclers_mcmc": {"--nsmp": (4, 10)},
+    "scaling_harness": {"--reps": (20, 50)},
+}
+EX05_LAM_TOL, EX05_COSINE_MIN = 1e-5, 0.9999
+
+
+def driver_args(module):
+    """A driver's defaults (its `parser()` on no flags) on the card in
+    float32, for the same problem in this process."""
+    import importlib
+    drv = importlib.import_module(f"krylov_spdes_tpu_torch.examples.{module}")
+    a = drv.parser().parse_args([])
+    a.device, a.dtype = torch.device("cuda"), torch.float32
+    return a
+
+
+def run_rank_driver(card, module, flags, ranks, logs):
+    """A multi-rank driver through main(argv) on the card: its ranks'
+    records, output, archives and seconds. Fails unless every rank ran on
+    the card over the backend of the drivers' rule."""
+    import contextlib
+    import importlib
+    import io
+    from krylov_spdes_tpu_torch.examples import common
+    common.RANK_TIMEOUT = RANK_DRIVER_TIMEOUT
+    cuts = RANK_DRIVER_CUTS.get(module, {})
+    argv = (list(flags) + [str(x) for f, (v, _) in cuts.items()
+                           for x in (f, v)]
+            + ["--ranks", str(ranks), "--data-dir", str(DRV_DIR)])
+    drv = importlib.import_module(f"krylov_spdes_tpu_torch.examples.{module}")
+    what = f"drivers_ranks: {module} {' '.join(argv[:-2])}"
+    log = logs / (f"{module}.{'_'.join(a.strip('-') for a in flags)}"
+                  f".r{ranks}.log")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            recs = drv.main(argv)
+        torch.cuda.synchronize()
+    except BaseException as e:  # SystemExit too: a driver must not exit
+        log.write_text(buf.getvalue())
+        raise CheckFailed(f"{what} raised {e!r}; its output is in {log}") \
+            from e
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    log.write_text(out)
+    backend = common.rank_backend(torch.device("cuda"), len(recs))
+    first = out.splitlines()[0]
+    check(first.startswith(f"device cuda float32; {len(recs)} rank(s) over "
+                           f"{backend}"), f"{what}: first line {first!r}")
+    check(all(r["backend"] == backend and r["device"].startswith("cuda")
+              for r in recs),
+          f"{what}: a rank off the card or off {backend}: "
+          f"{[(r['backend'], r['device']) for r in recs]}")
+    return recs, out, driver_archives(out), seconds, argv[:-2]
+
+
+def schur_system(a, dtype):
+    """ex08's Schur system (its operator, b_s, NN preconditioner) on the card
+    in `dtype`, in this process, unsharded."""
+    from krylov_spdes_tpu_torch import fem
+    from krylov_spdes_tpu_torch.examples import common
+    from krylov_spdes_tpu_torch.fem.schur import (
+        get_schur_rhs, prepare_neumann_neumann_schur_precond,
+        prepare_schur_operator)
+    import copy
+    a = copy.copy(a)
+    a.dtype = dtype
+    mesh, maps, _ = common.build_fem(a)
+    epart, part, plan = common.build_dd(a, mesh, maps)
+    coeff = torch.as_tensor(np.exp(np.random.default_rng(a.seed).normal(
+        size=mesh.nnode)), dtype=dtype, device="cuda")
+    A_II, A_IG, A_GGd, b_I, b_G = fem.assemble_dd_values(plan, coeff)
+    S = prepare_schur_operator(plan, part, A_II, A_IG, A_GGd)
+    return S, get_schur_rhs(S, b_I, b_G), \
+        prepare_neumann_neumann_schur_precond(S)
+
+
+def run_ex08_ranks(card, logs):
+    """ex08 at 1 rank (NCCL) and 2 (gloo): `it` of both within 2 of the
+    one-rank solve's range over b and EX08_ENVELOPE last-bit copies of b
+    (the same solve in this process, unsharded), and x's float64 relative
+    residual (the Schur system assembled in float64) within rtol or twice
+    the float32 floor u32·‖|S||x|‖/‖b‖, the lowest a float32 x can
+    reach."""
+    from krylov_spdes_tpu_torch.config import config
+    from krylov_spdes_tpu_torch.fem.schur import assembled_schur_operator
+    from krylov_spdes_tpu_torch.solvers.cg import pcg
+    a = driver_args("ex08_dd_parallel")
+    S, b_s, Pnn = schur_system(a, torch.float32)
+    its_env = [int(pcg(S, v, M=Pnn).it) for v in perturbed(b_s,
+                                                          EX08_ENVELOPE)]
+    del S, Pnn
+    S64, b64, _ = schur_system(a, torch.float64)
+    Sa = assembled_schur_operator(S64)
+    n = b64.shape[0]
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    Sdense = torch.stack([Sa(eye[i]) for i in range(n)], 1)
+    rows = []
+    for ranks in (1, 2):
+        recs, out, arcs, seconds, argv = run_rank_driver(
+            card, "ex08_dd_parallel", [], ranks, logs)
+        (arc,) = [v for k, v in arcs.items() if k.endswith(".ex08.npz")]
+        it = int(arc["iters"][0])
+        check({r["value"]["it"] for r in recs} == {it},
+              f"drivers_ranks ex08 --ranks {ranks}: the ranks' it differ")
+        check(min(its_env) - 2 <= it <= max(its_env) + 2,
+              f"drivers_ranks ex08 --ranks {ranks}: it {it} beyond 2 of the "
+              f"one-rank envelope {its_env}")
+        x = torch.as_tensor(recs[0]["value"]["x"], dtype=torch.float64,
+                            device="cuda")
+        tr = float(torch.linalg.vector_norm(b64 - Sdense @ x)
+                   / torch.linalg.vector_norm(b64))
+        floor = 2.0 ** -24 * float(torch.linalg.vector_norm(
+            Sdense.abs() @ x.abs()) / torch.linalg.vector_norm(b64))
+        check(tr <= max(config.rtol, 2 * floor),
+              f"drivers_ranks ex08 --ranks {ranks}: float64 residual {tr} "
+              f"above rtol {config.rtol} and twice the float32 floor "
+              f"{floor}")
+        rows.append(dict(ranks=ranks, backend=recs[0]["backend"], it=it,
+                         it_envelope_one_rank=its_env,
+                         it_equals_unsharded_on_b=it == its_env[0],
+                         rel_recursive=recs[0]["value"]["rel"],
+                         true_relres_float64=tr, f32_floor=floor,
+                         rtol=config.rtol, psum_calls=[
+                             r["value"]["psum_calls"] for r in recs],
+                         seconds=seconds, argv=argv))
+    emit("drivers_ranks_ex08", nnode=a.nnode, ndom=a.ndom, n_gamma=n,
+         runs=rows, ranks_share_one_gpu=True, card=card)
+    return sum(r["seconds"] for r in rows)
+
+
+def run_ex05_ranks(card, logs):
+    """ex05 on 2 ranks (gloo), both pipelines, against the same two-level KL
+    in this process (a world of one, unsharded), float32: the leading λ and
+    the captured variance within EX05_LAM_TOL relative, every λ within
+    EX05_LAM_TOL·λ₁, the leading modes' M-cosines ≥ EX05_COSINE_MIN (as
+    kl_protocol holds its bases), the kept count equal."""
+    from krylov_spdes_tpu_torch import fem, kl
+    from krylov_spdes_tpu_torch.examples import common
+    from krylov_spdes_tpu_torch.kl import dd_device
+    a = driver_args("ex05_kl_dd_distributed")
+    mesh, maps, _ = common.build_fem(a)
+    cov = kl.make_cov(a.model, a.sig2, a.L)
+    epart, _ = fem.mesh_partition(mesh.cells, mesh.points, a.ndom,
+                                  mesh.cell_neighbors)
+    M = fem.get_mass_matrix(mesh.cells, mesh.points, dtype=torch.float64,
+                            device="cpu").to_scipy()
+    opts = dict(nev=a.nev, relative_local=a.relative_local,
+                relative_global=a.relative_global, forget=a.forget,
+                dtype=torch.float32, device="cuda")
+    ref = {"device": dd_device.compute_dd_kl_device(
+        mesh.cells, mesh.points, epart, a.ndom, cov, pair_chunk=a.pair_chunk,
+        local_eig=a.local_eig, **opts),
+           "host": kl.compute_dd_kl(mesh.cells, mesh.points, epart, a.ndom,
+                                    cov, **opts)}
+    rows, seconds = [], 0.0
+    for pipe, flags in (("device", []), ("host", ["--host-pipeline"])):
+        recs, out, arcs, sec, argv = run_rank_driver(
+            card, "ex05_kl_dd_distributed", flags, 2, logs)
+        seconds += sec
+        (arc,) = [v for k, v in arcs.items()
+                  if k.endswith(".ex05.kl-dd-pll.npz")]
+        lam_r, psi_r = (np.asarray(common.host(t), dtype=np.float64)
+                        for t in ref[pipe])
+        lam, psi = arc["lam"].astype(np.float64), arc["psi"].astype(
+            np.float64)
+        # the reduced K is indefinite and all its positive modes are kept
+        # (the captured variance stays below relative_global), so the kept
+        # λ run down to the scale of K's float32 sum-order noise
+        # (lam_min_over_lam1 below). The leading modes (to the last gap at
+        # or below mode 30) are held relative, every λ to
+        # EX05_LAM_TOL·λ₁, the kept count exactly
+        k = leading_modes(lam_r)
+        err = float(np.max(np.abs(lam[:k] / lam_r[:k] - 1)))
+        var = abs(lam.sum() / lam_r.sum() - 1)
+        cos = m_cosines(psi[:, :k], psi_r[:, :k], M)
+        m = min(len(lam), len(lam_r))
+        err_all = float(np.max(np.abs(lam[:m] - lam_r[:m])) / lam_r[0])
+        check(err <= EX05_LAM_TOL and var <= EX05_LAM_TOL,
+              f"drivers_ranks ex05 {pipe}: leading {k} λ {err}, captured "
+              f"variance {var} from the one-rank run")
+        check(len(lam) == len(lam_r) and err_all <= EX05_LAM_TOL,
+              f"drivers_ranks ex05 {pipe}: {len(lam)} modes, one rank "
+              f"{len(lam_r)}; λ up to {err_all}·λ₁ apart")
+        check(cos.min() >= EX05_COSINE_MIN,
+              f"drivers_ranks ex05 {pipe}: M-cosine {cos.min()}")
+        check(all(np.array_equal(r["value"]["lam"], recs[0]["value"]["lam"])
+                  for r in recs), f"drivers_ranks ex05 {pipe}: the ranks' λ "
+                                  "differ")
+        rows.append(dict(pipeline=pipe, ranks=2, backend=recs[0]["backend"],
+                         modes=int(lam.shape[0]), modes_one_rank=len(lam_r),
+                         captured=float(arc["captured"]),
+                         captured_rel_diff=var, leading_modes=k,
+                         lam_max_rel_diff_leading=err,
+                         lam_max_rel_diff_all_common=float(np.max(np.abs(
+                             lam[:m] / lam_r[:m] - 1))),
+                         lam_max_abs_diff_over_lam1=err_all,
+                         lam_min_over_lam1=float(lam_r[-1] / lam_r[0]),
+                         lam_tolerance=EX05_LAM_TOL,
+                         m_cosine_min_leading=float(cos.min()),
+                         wall_s=float(arc["wall"]),
+                         psum_calls=recs[0]["value"]["psum_calls"],
+                         psum_bytes=recs[0]["value"]["psum_bytes"],
+                         seconds=sec, argv=argv))
+    emit("drivers_ranks_ex05", nnode=mesh.nnode, ndom=a.ndom, runs=rows,
+         ranks_share_one_gpu=True, card=card)
+    return seconds
+
+
+def run_ex17_ranks(card, logs):
+    """ex17 --fast --layout sharded --nchains 2 at 1 rank (NCCL) and 2
+    (gloo): the iteration tables bit-equal to each other and to --layout
+    vmap's in this process (the same seeds and chain steps, one chain
+    after the other) under DriverWatch; kernel A's launches summed over the
+    ranks equal what their solves imply: every rank seeds every chain (as
+    the JAX driver seeds outside its shard_map) and steps its own."""
+    flags = ["--fast", "--layout", "vmap"]
+    vmap = run_driver(card, "ex17_recyclers_mcmc", flags,
+                      RANK_DRIVER_CUTS["ex17_recyclers_mcmc"], logs)
+    (iters_vmap,) = [v for k, v in vmap["archive_ints"].items()
+                     if k.endswith(".ex17.fast.npz:iters")]
+    seeds = vmap["solves"]["_eigpcg_impl"]["applies"]
+    steps = vmap["solves"]["_eigdef_impl"]["applies"]
+    rows, tables, launches = [], {}, 0
+    for ranks in (1, 2):
+        recs, out, arcs, sec, argv = run_rank_driver(
+            card, "ex17_recyclers_mcmc", ["--fast", "--layout", "sharded",
+                                          "--nchains", "2"], ranks, logs)
+        (arc,) = [v for k, v in arcs.items() if k.endswith(".ex17.fast.npz")]
+        tables[ranks] = arc["iters"]
+        check(arc["iters"].tolist() == iters_vmap,
+              f"drivers_ranks ex17 --ranks {ranks}: iters "
+              f"{arc['iters'].tolist()} differ from the vmap layout's "
+              f"{iters_vmap}")
+        got = [r["launches_a"] for r in recs]
+        implied = ranks * seeds + steps
+        check(sum(got) == implied,
+              f"drivers_ranks ex17 --ranks {ranks}: {got} launches of kernel "
+              f"A, {implied} implied ({ranks} x the seeds' {seeds} + the "
+              f"steps' {steps})")
+        launches += sum(got)
+        rows.append(dict(ranks=ranks, backend=recs[0]["backend"],
+                         iters=arc["iters"].tolist(),
+                         kernel_a_launches_by_rank=got,
+                         kernel_a_launches_implied=implied,
+                         ms_per_sample=1e3 * recs[0]["value"]["seconds"]
+                         / arc["iters"].size, seconds=sec, argv=argv))
+    check(np.array_equal(tables[1], tables[2]),
+          "drivers_ranks ex17: 2 ranks differ from 1")
+    emit("drivers_ranks_ex17", runs=rows, iters_vmap=iters_vmap,
+         bit_equal_across_ranks=True, ranks_share_one_gpu=True, card=card)
+    return sum(r["seconds"] for r in rows), launches
+
+
+def run_harness_ranks(card, logs):
+    """The scaling harness, both arms, on 4 ranks (gloo): rows at 1, 2 and 4
+    ranks; one psum a matvec, and the psum sites a DD step (the JAX
+    harness's HLO all-reduce count) the same at every rank count."""
+    out_rows, seconds = {}, 0.0
+    for arm, flags in (("matvec", []), ("dd_chain", ["--dd-chain"])):
+        recs, out, _, sec, argv = run_rank_driver(card, "scaling_harness",
+                                                  flags, 4, logs)
+        seconds += sec
+        rows = recs[0]["value"]
+        check([r["ranks"] for r in rows] == [1, 2, 4],
+              f"drivers_ranks harness {arm}: rows {rows}")
+        if arm == "matvec":
+            check({r["psum_calls_per_matvec"] for r in rows} == {1},
+                  f"drivers_ranks harness: psums a matvec {rows}")
+        else:
+            check(len({r["psum_sites"] for r in rows}) == 1
+                  and all(r["its"] < 400 for r in rows),
+                  f"drivers_ranks harness dd-chain: {rows}")
+        out_rows[arm] = dict(rows=rows, seconds=sec, argv=argv)
+    emit("drivers_ranks_harness", arms=out_rows, ranks_share_one_gpu=True,
+         note="every rank on the one card: the rows measure gloo's "
+              "host-staged psums and the ranks' contention, not a split of "
+              "the work", card=card)
+    return seconds
+
+
+def _kernel_a_rank(nnodes):
+    """A rank's kernel A against its plain version at get_mesh(n)'s grids."""
+    import torch.distributed as dist
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    out = []
+    for n in nnodes:
+        St, _ = large_system(n)
+        x = torch.randn(St.n, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(dist.get_rank()))
+        y = sk.stencil_spmv(St.planes, St.dir_diag, x)
+        y0 = sk.stencil_spmv_plain(St.planes, St.dir_diag, x)
+        out.append(dict(H=St.H, W=St.W, max_rel_err=float(
+            (y - y0).abs().max() / y0.abs().max())))
+    return dict(rank=dist.get_rank(), backend=dist.get_backend(),
+                device=f"cuda:{torch.cuda.current_device()}", holds=out)
+
+
+def run_drivers_ranks(card):
+    """drivers_ranks: kernel A held to its plain version on 2 gloo ranks,
+    then ex08, ex05, ex17 --layout sharded and the scaling harness.
+    Returns (seconds, kernel A's launches in the ranks' main paths)."""
+    from krylov_spdes_tpu_torch.parallel import launch
+    t_phase = time.perf_counter()
+    logs = DRV_DIR / "logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    held = launch(_kernel_a_rank, 2, args=((4000, 65000),), backend="gloo",
+                  device="cuda", timeout=PAR_TIMEOUT)
+    worst = max(h["max_rel_err"] for r in held for h in r["holds"])
+    check(worst <= 1e-6, f"kernel_a_ranks: max rel err {worst}")
+    emit("kernel_a_ranks", ranks=held, tolerance=1e-6, card=card)
+    emit("drivers_ranks_cuts", width="the drivers' defaults: --nnode 4000 "
+         "--ndom 20 (base_parser), the harness --nnode 4000 a rank, 4 "
+         "subdomains a rank", cuts={m: {k: dict(here=v, default=d)
+                                        for k, (v, d) in c.items()}
+                                    for m, c in RANK_DRIVER_CUTS.items()})
+    seconds = dict(ex08=run_ex08_ranks(card, logs),
+                   ex05=run_ex05_ranks(card, logs))
+    seconds["ex17"], launches = run_ex17_ranks(card, logs)
+    seconds["harness"] = run_harness_ranks(card, logs)
+    total = time.perf_counter() - t_phase
+    emit("drivers_ranks_total", seconds=total, seconds_by_driver=seconds,
+         kernel_a_launches=launches, card=card)
+    return total, launches
+
+
+# ---------------------------------------------------------------------------
+# Slice 12 (2 of 2): the root measurement drivers' twins
+# (krylov_spdes_tpu_torch/bench/bench_*.py) through their main(argv) at
+# their default sizes, under DriverWatch, depth cut as BENCH_CUTS says.
+# ---------------------------------------------------------------------------
+
+# (module, {BENCH_* variable: (value here, the default)}) in run order
+BENCH_RUNS = (
+    ("bench_chain", {}),
+    ("bench_dd_chain", {}),
+    ("bench_amg", {"NSOLVE": (2, 8)}),
+    ("bench_banded", {}),
+    ("bench_vmem_eigdef", {}),
+    ("bench_vmem_stretch", {}),
+)
+# Solves the JAX files cap below what their systems need (the port on the
+# CPU, uncapped): bench_banded.py times Jacobi-PCG on its 32k Delaunay
+# system with maxit 500 for µs an iteration, where the system needs 698
+# iterations in float64 and 703 in float32 (rtol 1e-6), so both paths run
+# to the cap in either package; bench_vmem_*.py seed W by an eigPCG solve
+# capped at 400 iterations, where the 65k system needs 583 (rtol 1e-5,
+# float64 and float32): the seed harvests W, the timed solves converge
+BENCH_CAPPED = {"bench_banded": ("pcg",),
+                "bench_vmem_eigdef": ("_eigpcg_impl",),
+                "bench_vmem_stretch": ("_eigpcg_impl",)}
+# the solver loops the bench drivers call directly
+BENCH_WATCHED = (("solvers.cg", ("_cg_impl", "_pcg_impl")),
+                 ("solvers.eigcg", ("_eigpcg_impl",)),
+                 ("solvers.defcg", ("_eigdef_impl",)))
+E_ENVELOPE = 4               # last-bit copies of b behind E's `it` range
+
+
+class StretchWatch:
+    """While a bench runs: each vmem_eigdefpcg solve (ops/vmem_eigdef.py's
+    `_vmem_eigdef_impl`) with its final `it` and the `it` after each of its
+    thick restarts (`_restart_iteration`, the host's iteration between two
+    stretches). Its loop launches kernel E once a stretch: one before each
+    restart, and one more where iterations follow the last restart (or
+    the start)."""
+
+    def __init__(self):
+        from krylov_spdes_tpu_torch.ops import vmem_eigdef as ve
+        self.ve, self.solves = ve, []
+        impl, restart = ve._vmem_eigdef_impl, ve._restart_iteration
+        self.saved = (impl, restart)
+
+        def solve(*a, **kw):
+            self.solves.append(dict(restarts=[]))
+            out = impl(*a, **kw)
+            self.solves[-1]["it"] = int(out[1])
+            return out
+
+        def restarted(*a, **kw):
+            out = restart(*a, **kw)
+            self.solves[-1]["restarts"].append(a[8]["it"])   # st["it"]
+            return out
+        # the restart counts its calls on the name it is called by
+        restarted.calls = restart.calls
+        ve._vmem_eigdef_impl, ve._restart_iteration = solve, restarted
+
+    def implied(self):
+        """(stretches, restarts) of the solves."""
+        stretches = sum(len(s["restarts"]) + (s["it"] > (
+            s["restarts"][-1] if s["restarts"] else 1)) for s in self.solves)
+        return stretches, sum(len(s["restarts"]) for s in self.solves)
+
+    def close(self):
+        impl, restart = self.saved
+        restart.calls = self.ve._restart_iteration.calls
+        self.ve._vmem_eigdef_impl, self.ve._restart_iteration = impl, restart
+
+
+def run_bench(card, module, cuts, logs):
+    """A bench driver's main(["--"]) on the card under DriverWatch, its
+    BENCH_* variables set to the cuts: (its result, its JSON lines, the
+    watches, kernel A's and E's launches, seconds)."""
+    import contextlib
+    import importlib
+    import io
+    import os
+    from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
+    from krylov_spdes_tpu_torch.ops import vmem_eigdef as ve
+    mod = importlib.import_module(f"krylov_spdes_tpu_torch.bench.{module}")
+    env = {f"BENCH_{k}": str(v) for k, (v, _) in cuts.items()}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    sk.stencil_spmv.launches = ve.stretch.launches = 0
+    watch, stretches = DriverWatch(BENCH_WATCHED), StretchWatch()
+    buf = io.StringIO()
+    log = logs / f"{module}.log"
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = mod.main([])
+        torch.cuda.synchronize()
+    except BaseException as e:
+        log.write_text(buf.getvalue())
+        raise CheckFailed(f"bench_drivers: {module} raised {e!r}; its output "
+                          f"is in {log}") from e
+    finally:
+        watch.close()
+        stretches.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    log.write_text(out)
+    check(out.startswith("device cuda float32"),
+          f"bench_drivers: {module}: no device line")
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    check(lines, f"bench_drivers: {module}: no JSON line")
+    comments = [ln for ln in out.splitlines() if ln.startswith("# ")]
+    return (result, lines, comments, watch, stretches,
+            sk.stencil_spmv.launches, ve.stretch.launches, seconds)
+
+
+def hold_kernel_e_at(St, b, W0, spdim, card):
+    """Kernel E against its plain version stretch_coef_plain on a bench
+    solve's start (its system, nvec and spdim) over 1 and 8 iterations, as
+    kernel_e holds it: that the plan launches and the wrapper takes the
+    shapes, before the bench's timed runs."""
+    from krylov_spdes_tpu_torch.ops import fused_cg as fc
+    from krylov_spdes_tpu_torch.ops import vmem_eigdef as ve
+    nvec = W0.shape[1]
+    ps = fc.build_padded_stencil(St)
+    bp = fc.pad_vec(ps, b)
+    minv = fc._jacobi_minv(ps, fc._unblock_planes(ps), None)
+    Wp = torch.stack([fc.pad_vec(ps, w) for w in W0.T.contiguous()])
+    o = ve.stretch_operands(ps, minv, bp, Wp)
+    tol2 = torch.tensor(1e-30, device="cuda")
+    errs = {}
+
+    def one(fn, nsteps):
+        V = bp.new_zeros((spdim, ps.R, ps.C))
+        V[:nvec] = Wp
+        V[nvec] = o["z"] / torch.sqrt(o["rTz"])
+        return fn(ps, minv, o["G"], o["Ac"], o["Bc"], o["x"].clone(),
+                  o["r"].clone(), o["p"].clone(), V, tol2, o["rTz"],
+                  o["rTr"], nsteps, nvec)
+    for nsteps, tol in ((1, 1e-5), (8, 2e-3)):
+        errs[nsteps] = stretch_errors(one(ve.stretch, nsteps),
+                                      one(ve.stretch_coef_plain, nsteps),
+                                      nsteps, nvec)
+        check(max(errs[nsteps].values()) <= tol,
+              f"kernel_e_bench: nvec {nvec} spdim {spdim} over {nsteps}: "
+              f"{errs[nsteps]}")
+    full = spdim - 1 - nvec
+    k = one(ve.stretch, full)
+    check(int(k[7]) == full, f"kernel_e_bench: a full stretch ran {int(k[7])}"
+                             f" of {full}")
+    emit("kernel_e_bench", H=St.H, W=St.W, nvec=nvec, spdim=spdim,
+         rel_err=errs, tolerance={1: 1e-5, 8: 2e-3},
+         plan=dataclasses.asdict(ve.plan_for(ps, bp, nvec)), card=card)
+
+
+DD_STALL_MAXIT = 3000    # plain NN-PCG's iterations on a stalled field
+
+
+def hold_dd_stalls(what, r):
+    """bench_dd_chain's solves below maxit, except where the field's float32
+    interface system does not converge at all: there plain NN-PCG in
+    float32 stays above rtol for DD_STALL_MAXIT iterations, and the same
+    field's system in float64 converges below maxit. (Fields from this
+    chain on the card where the recycled solve stalled gave the same in
+    the JAX package on the CPU in float32: NN-PCG at 0.27 after 3000
+    iterations, 82 in float64.) A stalled solve on a system that float32
+    NN-PCG does solve fails the run."""
+    from krylov_spdes_tpu_torch import dd_chains, fem
+    from krylov_spdes_tpu_torch.solvers.cg import _pcg_impl
+    rows, plan64 = [], None
+    for k, it in enumerate(r["its_all"]):
+        if it < r["maxit"]:
+            continue
+        g = r["fields"][k].to("cuda")
+        A, M, b = dd_chains._dd_system(r["plan"], r["part"], g)
+        _, it32, res = _pcg_impl(A, M, b, torch.zeros_like(b),
+                                 DD_STALL_MAXIT, CHAIN_RTOL)
+        floor32 = float(res[:it32].min() / torch.linalg.vector_norm(b))
+        if plan64 is None:
+            mesh = fem.get_mesh(r["nnode"], seed=0)
+            maps = fem.get_dirichlet_inds(mesh.points, mesh.point_markers)
+            _, part64, plan64 = fem.prepare_dd_stencil_assembly(
+                mesh, maps, _f_src, _u_dir, r["ndom"], dtype=torch.float64,
+                device="cuda")
+        A, M, b = dd_chains._dd_system(plan64, part64, g.double())
+        it64 = int(_pcg_impl(A, M, b, torch.zeros_like(b), r["maxit"],
+                             CHAIN_RTOL)[1])
+        check(floor32 > CHAIN_RTOL and it64 < r["maxit"],
+              f"{what}: solve {k} reached maxit; float32 NN-PCG on its field "
+              f"reaches {floor32}, float64 takes {it64}")
+        rows.append(dict(solve=k, nn_pcg_float32_min_relres=floor32,
+                         nn_pcg_float32_iterations=it32,
+                         nn_pcg_float64_it=it64))
+    return rows
+
+
+def run_bench_drivers(card):
+    """bench_drivers: kernel A at get_mesh(32000)'s and get_mesh(65000)'s
+    grids and kernel E at the vmem benches' shapes against their plain
+    versions, then each bench driver at its default size (BENCH_RUNS).
+    Returns (seconds, kernel A's launches, kernel E's launches)."""
+    from krylov_spdes_tpu_torch.bench import bench_vmem_eigdef as bve
+    from krylov_spdes_tpu_torch.ops.stencil_kernel import stencil_spmv_plain
+    from krylov_spdes_tpu_torch.solvers.cg import _cg_impl, _pcg_impl
+    t_phase = time.perf_counter()
+    logs = DRV_DIR / "bench_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    check_kernel_a_at("kernel_a_bench_32k", large_system(32000)[0], card)
+    import argparse
+    St65, b65, mdiag65 = bve.bench_system(argparse.Namespace(
+        device=torch.device("cuda"), dtype=torch.float32), 65000)
+    check_kernel_a_at("kernel_a_bench_65k", St65, card)
+    W65, _ = bve.seed_basis(St65, b65, 1.0 / mdiag65, 16, 48, 400)
+    for spdim in (48, 80):
+        hold_kernel_e_at(St65, b65, W65, spdim, card)
+    del St65, b65, W65
+    emit("bench_drivers_cuts", sizes="each bench driver's default "
+         "BENCH_NNODE (bench_amg 1M, bench_banded 32k, bench_chain 250k, "
+         "bench_dd_chain 65k in 32 subdomains, bench_vmem_* 65k nvec 16); "
+         "BENCH_ENVELOPE unset, as the JAX files' default",
+         cuts={m: {k: dict(here=v, default=d) for k, (v, d) in c.items()}
+               for m, c in BENCH_RUNS if c})
+    launches_a = launches_e = 0
+    seconds = {}
+    for module, cuts in BENCH_RUNS:
+        (r, lines, comments, watch, swatch, la, le,
+         sec) = run_bench(card, module, cuts, logs)
+        what = f"bench_drivers: {module}"
+        implied_a = check_watch(what, watch, la,
+                                BENCH_CAPPED.get(module, ()))
+        extra = {}
+        if module == "bench_dd_chain":
+            extra["at_maxit"] = hold_dd_stalls(what, r)
+        if module == "bench_amg":
+            St, b = r["St"], r["b"] * r["scale"]
+            zero = torch.zeros_like(b)
+            plain = lambda v: stencil_spmv_plain(St.planes,  # noqa: E731
+                                                 St.dir_diag, v)
+            held = {}
+            for name, x, solve in (
+                    ("amg", r["x_amg"], lambda v: _pcg_impl(
+                        plain, r["M"], v, zero, r["amg_maxit"], r["rtol"])),
+                    ("cg", r["x_cg"], lambda v: _cg_impl(
+                        plain, v, zero, r["cg_maxit"], r["rtol"]))):
+                runs = [solve(v) for v in perturbed(b, 4)]
+                its = [o[1] for o in runs]
+                it = r[f"{name}_its"][-1]
+                err = rel(x, runs[0][0])
+                tr = stencil_true_relres(St, b, (x, zero))
+                tr_p = stencil_true_relres(St, b, (runs[0][0], zero))
+                check(err <= 1e-3, f"{what}: {name} x {err} from the plain "
+                                   f"A's")
+                check(min(its) <= it <= max(its),
+                      f"{what}: {name} it {it} outside the plain A's {its}")
+                check(tr <= max(1e-5, 2 * tr_p),
+                      f"{what}: {name} float64 residual {tr} / plain {tr_p}")
+                held[name] = dict(it=it, it_plain=its, x_rel_err=err,
+                                  true_relres=tr, true_relres_plain=tr_p,
+                                  f32_floor=f32_floor(St, b, x))
+            extra["against_plain_a"] = held
+        if module == "bench_banded":
+            it_e, it_b = r["it_ell"], r["it_banded"]
+            x_diff = rel(r["x_banded"], r["x_ell"])
+            check(abs(it_b - it_e) <= 0.05 * max(it_e, it_b)
+                  and x_diff <= UN_X_TOL,
+                  f"{what}: banded it {it_b} / ELL {it_e}, x {x_diff}")
+            extra.update(it_ell=it_e, it_banded=it_b, x_rel_diff=x_diff)
+        # kernel E: one launch a stretch of the solves' loops, and the
+        # sweep's calls (a warm call and 3 x NQ timed a point)
+        implied_e, restarts = swatch.implied()
+        if module == "bench_vmem_stretch":
+            implied_e += len(r["nsteps"]) * (1 + 3 * r["nq"])
+        check(le == implied_e, f"{what}: {le} launches of kernel E; its "
+                               f"solves and calls imply {implied_e}")
+        if le:
+            extra.update(kernel_e_launches=le, kernel_e_launches_implied=
+                         implied_e, restarts=restarts,
+                         vmem_solves=len(swatch.solves))
+        if module == "bench_vmem_eigdef":
+            from krylov_spdes_tpu_torch.bench.bench_vmem_eigdef import twin
+            its = [int(twin(r["St"], v, r["W0"], r["mdiag"], r["nvec"],
+                            r["spdim"], r["maxit"])[1])
+                   for v in perturbed(r["b"], E_ENVELOPE)]
+            err = rel(r["x_vmem"], r["x_twin"])
+            check(err <= 1e-3, f"{what}: E's x {err} from the twin's")
+            check(0.95 * min(its) <= r["it_vmem"] <= 1.05 * max(its),
+                  f"{what}: E's it {r['it_vmem']} outside the twin's "
+                  f"last-bit envelope {its}")
+            extra.update(x_rel_err=err, it_twin_envelope=its)
+        launches_a += la
+        launches_e += le
+        seconds[module] = sec
+        emit("bench_driver", script=f"krylov_spdes_tpu_torch/bench/"
+             f"{module}.py", env={f"BENCH_{k}": v for k, (v, _) in
+                                  cuts.items()}, json_lines=lines,
+             comments=comments, seconds=sec, solves=by_solver(watch),
+             kernel_a_launches=la, kernel_a_launches_implied=implied_a,
+             card=card, **extra)
+    total = time.perf_counter() - t_phase
+    emit("bench_drivers_total", seconds=total, seconds_by_driver=seconds,
+         kernel_a_launches=launches_a, kernel_e_launches=launches_e,
+         card=card)
+    return total, launches_a, launches_e
+
+
+
+def run(card, only=()):
     from krylov_spdes_tpu_torch import fem
     from krylov_spdes_tpu_torch.ops import cuda_build
     from krylov_spdes_tpu_torch.ops import fused_cg as fc
@@ -4078,6 +4799,13 @@ def run(card):
         cuda_build.load(name)
     emit("build", seconds=time.perf_counter() - t0, per_source=per_source,
          card=card)
+    if only:
+        # slice 12's phases alone (python3 chip_smoke.py drivers_ranks ...)
+        DRV_DIR.mkdir(parents=True, exist_ok=True)
+        for name in only:
+            {"drivers_ranks": run_drivers_ranks,
+             "bench_drivers": run_bench_drivers}[name](card)
+        return
 
     # ---- setup: bench.py's system, through the port's entry points ----------
     t0 = time.perf_counter()
@@ -4350,6 +5078,13 @@ def run(card):
     torch.cuda.empty_cache()
     _, drivers_a = run_drivers(card)
     kernels["A"]["launches"] += drivers_a
+    torch.cuda.empty_cache()
+    _, ranks_a = run_drivers_ranks(card)
+    kernels["A"]["launches"] += ranks_a
+    torch.cuda.empty_cache()
+    _, bench_a, bench_e = run_bench_drivers(card)
+    kernels["A"]["launches"] += bench_a
+    kernels["E"]["launches"] += bench_e
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():
@@ -4385,15 +5120,26 @@ def main() -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
+    only = sys.argv[1:]
+    unknown = set(only) - {"drivers_ranks", "bench_drivers"}
+    if unknown:
+        print(f"chip_smoke: unknown phases {sorted(unknown)}", file=sys.stderr)
+        return 2
+    t_run = time.perf_counter()
     try:
-        run(card)
+        run(card, only)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
+    emit("run_total", seconds=time.perf_counter() - t_run,
+         phases=only or "all", card=card)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    # only a full run ends with the "ok" line; a run of some phases names
+    # them instead, so that its last line cannot pass for a full run's
+    print(json.dumps({"partial_run": only, "device": device} if only else
+                     {"ok": True, "device": device}), flush=True)
     return 0
 
 

@@ -54,11 +54,37 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_ranks_flag(p):
+    """--ranks: the multi-rank drivers' counterpart of the JAX drivers'
+    device count (`XLA_FLAGS=--xla_force_host_platform_device_count=N`,
+    `len(jax.devices())`)."""
+    p.add_argument("--ranks", type=int, default=1,
+                   help="ranks (processes, spawned by parallel.launch) the "
+                        "driver runs on; every rank computes on the run's "
+                        "device")
+    return p
+
+
+# seconds the ranks of a multi-rank driver may run before they are killed
+# and the driver fails (read by run_ranks at each call)
+RANK_TIMEOUT = 1800.0
+
+
+def rank_backend(device, ranks: int) -> str:
+    """The process-group backend of a multi-rank run, by one rule: NCCL
+    when every rank has a card of its own, gloo when ranks share one (NCCL
+    refuses two ranks on one GPU) and on the CPU."""
+    if device.type == "cuda" and ranks <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
 def init_backend(args):
     """(device, dtype) of the run: the CPU in float64 with --cpu, else the
     CUDA card in float32. Raises when there is no CUDA device and --cpu was
     not given; it never falls back to the CPU. Also kept on `args` for the
-    helpers below."""
+    helpers below. A driver with --ranks also gets its backend
+    (`rank_backend`), named on the same first line."""
     if args.cpu:
         device, dtype = torch.device("cpu"), torch.float64
     elif not torch.cuda.is_available():
@@ -67,9 +93,57 @@ def init_backend(args):
     else:
         device, dtype = torch.device("cuda"), torch.float32
     args.device, args.dtype = device, dtype
-    print(f"device {device.type} {str(dtype).removeprefix('torch.')}",
-          flush=True)
+    line = f"device {device.type} {str(dtype).removeprefix('torch.')}"
+    if hasattr(args, "ranks"):
+        args.backend = rank_backend(device, args.ranks)
+        line += f"; {args.ranks} rank(s) over {args.backend}"
+        if device.type == "cuda":
+            cards = torch.cuda.device_count()
+            line += (", one card a rank" if args.backend == "nccl" else
+                     f", {args.ranks} ranks share {cards} card(s): NCCL "
+                     "takes one rank a GPU")
+    print(line, flush=True)
     return device, dtype
+
+
+def _rank_entry(fn, args, *fargs):
+    """One rank of a driver: fn(args, *fargs) with its printed output kept,
+    and this rank's launches of kernels A and E (the counters live in the
+    rank's own process)."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+    from ..ops import stencil_kernel, vmem_eigdef
+    stencil_kernel.stencil_spmv.launches = 0
+    vmem_eigdef.stretch.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        value = fn(args, *fargs)
+    sync(args)
+    return dict(value=value, stdout=buf.getvalue(), rank=dist.get_rank(),
+                backend=dist.get_backend(),
+                device=(f"cuda:{torch.cuda.current_device()}"
+                        if args.device.type == "cuda" else "cpu"),
+                launches_a=stencil_kernel.stencil_spmv.launches,
+                launches_e=vmem_eigdef.stretch.launches)
+
+
+def run_ranks(args, fn, *fargs):
+    """fn(args, *fargs) on --ranks ranks through parallel.launch, over the
+    backend of `init_backend`. fn is a module-level function (a spawned rank
+    imports it) and its arguments pickle. Rank 0 prints and archives; its
+    output is printed here, so the run reads as the single-controller JAX
+    driver's. Returns every rank's `_rank_entry` record in rank order. A
+    rank or rendezvous that fails raises: nothing reruns on fewer ranks,
+    another backend or the CPU; nor do ranks still running after
+    RANK_TIMEOUT seconds, which are killed."""
+    from ..parallel import launch
+    out = launch(_rank_entry, args.ranks, args=(fn, args) + tuple(fargs),
+                 backend=args.backend, device=args.device.type,
+                 timeout=RANK_TIMEOUT)
+    print(out[0]["stdout"], end="", flush=True)
+    return out
 
 
 def sync(args):

@@ -6,10 +6,12 @@ Example17_DefPcgMcmcStochasticEllipticPde_Functions.jl:87-382, serial):
 per chain, per sample, run PCG plus the 6 recycling deflated solvers with
 nvec=ndom, spdim=3ndom; record per-sample iteration counts. --fast runs
 whole chains on the device (stencil assembly + eigDef-PCG; the matvec is
-kernel A on the card) in one process: `--layout batched` through the
-natively batched solver, `--layout vmap` one chain after the other
-(`chains.run_chains`). `--layout sharded`, the reference's _Pll.jl form
-over ranks, is not part of this driver yet (ROADMAP item 17b).
+kernel A on the card): `--layout batched` through the natively batched
+solver, `--layout vmap` one chain after the other (`chains.run_chains`),
+and `--layout sharded`, the reference's _Pll.jl form, one block of chains
+a rank over min(nchains, --ranks) ranks
+(`chains.make_sharded_chain_step`; the eigPCG seeds of every chain on
+every rank, as the JAX driver seeds them outside its shard_map).
 """
 
 from __future__ import annotations
@@ -19,8 +21,57 @@ import time
 
 import numpy as np
 
-from .common import (base_parser, build_fem, build_kl, fsrc, init_backend,
-                     root_fname, save_npz, sync, uex)
+from ..parallel import is_coordinator
+from .common import (add_ranks_flag, base_parser, build_fem, build_kl, fsrc,
+                     host, init_backend, root_fname, run_ranks,
+                     save_npz, sync, uex)
+
+
+def sharded_rank(args, lam, psi, nvec, spdim):
+    """One rank of `--fast --layout sharded`: the chains' states (the same
+    on every rank), every chain's eigPCG seed, then nsmp - 1 steps of
+    make_sharded_chain_step over a mesh of one chain block a rank. Returns
+    the (nchains, nsmp) iteration table, whole on every rank."""
+    import torch
+    import torch.distributed as dist
+    from ..chains import (make_sharded_chain_step, prepare_chain_states,
+                          seed_chains_batched)
+    from ..fem import prepare_stencil_assembly
+    from ..parallel import make_mesh
+    mesh, maps, _ = build_fem(args)
+    plan = prepare_stencil_assembly(mesh, maps, fsrc, uex, dtype=args.dtype,
+                                    device=args.device)
+    t = lambda a: torch.as_tensor(a, dtype=args.dtype,  # noqa: E731
+                                  device=args.device)
+    states = prepare_chain_states(t(lam), t(psi), nchains=args.nchains,
+                                  device=args.device, dtype=args.dtype)
+    dmesh = make_mesh(n_dom=1, n_chain=dist.get_world_size())
+    sync(args)
+    t0 = time.perf_counter()
+    W, it0 = seed_chains_batched(plan, states, nvec=nvec, spdim=spdim,
+                                 maxit=args.maxit)
+    step = make_sharded_chain_step(dmesh, plan, nvec=nvec, spdim=spdim,
+                                   maxit=args.maxit)
+    its_l = [it0.to(args.device)]
+    for _ in range(args.nsmp - 1):
+        states, W, it, cnt = step(states, W)
+        its_l.append(it)
+    its = host(torch.stack(its_l, dim=1))
+    sync(args)
+    dt = time.perf_counter() - t0
+    report(args, its, dt)
+    return dict(iters=its, seconds=dt)
+
+
+def report(args, its, dt):
+    """The --fast arms' lines and archive (rank 0's alone in a sharded
+    run)."""
+    print(f"on-device chains: {args.nchains}x{args.nsmp} samples in "
+          f"{dt:.1f}s ({dt / (args.nchains * args.nsmp) * 1e3:.0f} "
+          f"ms/sample)")
+    print("per-sample mean iters:", its.mean(axis=0).round(1))
+    if is_coordinator():
+        save_npz(args, f"ndom{args.ndom}.ex17.fast", iters=its)
 
 
 def main(argv=None):
@@ -36,8 +87,8 @@ def main(argv=None):
                    choices=["batched", "vmap", "sharded"],
                    help="multi-chain layout for --fast: natively-batched "
                         "solver (default), one chain after the other "
-                        "(vmap), or one chain a rank (sharded: ROADMAP "
-                        "item 17b, not ported yet)")
+                        "(vmap), or a block of chains a rank over "
+                        "min(nchains, --ranks) ranks (sharded)")
     p.add_argument("--methods", default=None,
                    help="comma filter of recyclers to run (default: all "
                         "six), e.g. --methods lotrhr for a targeted re-run")
@@ -59,11 +110,13 @@ def main(argv=None):
     p.add_argument("--tag", default=None,
                    help="archive-filename suffix (keeps e.g. a certified "
                         "card arm separate from earlier arms)")
+    add_ranks_flag(p)
     args = p.parse_args(argv)
     if args.fast and args.layout == "sharded":
-        raise SystemExit("ex17: --layout sharded (one chain a rank through "
-                         "parallel.launch) is ROADMAP item 17b and not "
-                         "ported yet; use --layout batched or vmap")
+        # the JAX driver's mesh of min(nchains, devices) chain shards
+        args.ranks = min(args.nchains, args.ranks)
+    else:
+        del args.ranks       # the other arms run in this process
     device, dtype = init_backend(args)
     import torch
     from ..fem import do_isotropic_elliptic_assembly
@@ -84,6 +137,9 @@ def main(argv=None):
         from ..chains import (prepare_chain_states, run_chains,
                               run_chains_batched)
         from ..fem import prepare_stencil_assembly
+        if args.layout == "sharded":
+            return run_ranks(args, sharded_rank, host(lam), host(psi), nvec,
+                             spdim)
         plan = prepare_stencil_assembly(mesh, maps, fsrc, uex, dtype=dtype,
                                         device=device)
         states = prepare_chain_states(lam, psi, nchains=args.nchains,
@@ -95,12 +151,7 @@ def main(argv=None):
                           spdim=spdim, maxit=args.maxit)
         its = its.cpu().numpy()
         sync(args)
-        dt = time.perf_counter() - t0
-        print(f"on-device chains: {args.nchains}x{args.nsmp} samples in "
-              f"{dt:.1f}s ({dt / (args.nchains * args.nsmp) * 1e3:.0f} "
-              f"ms/sample)")
-        print("per-sample mean iters:", its.mean(axis=0).round(1))
-        save_npz(args, f"ndom{args.ndom}.ex17.fast", iters=its)
+        report(args, its, time.perf_counter() - t0)
         return
     A0, _ = do_isotropic_elliptic_assembly(asm, np.ones(mesh.nnode))
     M0 = amg_precond(A0)

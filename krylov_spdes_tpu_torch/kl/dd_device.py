@@ -14,7 +14,8 @@ round trips between stages:
       C = M Ĉ M, runs the batched generalized eigensolve, truncates by the
       energy rule and M-renormalizes with masks, and keeps only
       (λ_d, φ_d, ρ_d = M φ_d): the O(n_max²) mass and covariance blocks live
-      only inside one chunk.
+      only inside one chunk. With a mesh the chunks split over its ranks
+      and are all-gathered, so that every rank holds one set of local bases.
     - stage B: the screened pair list in chunks, each computing the tiles
       K_{dd'} = ρ_dᵀ Ĉ_{dd'} ρ_{d'} and writing them into K. With a mesh
       (`mesh=`, parallel.Mesh) the pair list is split over all its ranks
@@ -40,7 +41,7 @@ import torch
 
 from ..config import resolve
 from ..fem.mesh import element_geometry
-from ..parallel.sharding import AXES, psum
+from ..parallel.sharding import AXES, all_gather_cat, psum
 from ..solvers.base import f32_exact
 from .dd import (KLSubdomains, _local_covariance, _local_generalized_eigh,
                  _padded_coords, solve_global_reduced_kl)
@@ -195,7 +196,7 @@ def _local_generalized_eig_randomized(C, M, maskf, nev: int, Y0,
 def local_kls_device(tables: KLDomTables, points, cov, nev: int,
                      relative: float = 0.99, dom_chunk: int | None = None,
                      dtype=None, local_eig: str = "auto", device=None,
-                     Y0=None, generator=None):
+                     Y0=None, generator=None, mesh=None):
     """Stage A over dom chunks. Returns device tensors (lam_d (ndom, nev),
     phi_d (ndom, n_max, nev), rho_d (ndom, n_max, nev), m_d (ndom,),
     total_energy (scalar)), with no host read-back.
@@ -205,10 +206,18 @@ def local_kls_device(tables: KLDomTables, points, cov, nev: int,
     else one drawn from `generator`; every dom chunk starts from the same
     block, as every chunk of the JAX package's scan draws from
     PRNGKey(0)), or "auto", which is "eigh" here (the JAX package picks
-    the randomized path only on a TPU)."""
+    the randomized path only on a TPU).
+
+    With `mesh` (parallel.Mesh) the dom chunks split over all its ranks
+    (by default one chunk of ⌈ndom / ranks⌉ subdomains a rank) and are
+    all-gathered, so every rank holds the same local bases. Each rank
+    solving all of them would not do: the card's batched eigh does not
+    repeat its eigenvectors bit for bit (signs and rotations within near
+    pairs), and stage B must form every tile from one basis."""
     device, dtype = resolve(device, dtype)
     ndom, n_max = tables.ndom, tables.n_max
-    chunk = dom_chunk or ndom
+    nshard = 1 if mesh is None else mesh.axis_size(AXES)
+    chunk = dom_chunk or -(-ndom // nshard)
     npad = -(-ndom // chunk) * chunk
     if local_eig == "auto":
         local_eig = "eigh"
@@ -238,8 +247,13 @@ def local_kls_device(tables: KLDomTables, points, cov, nev: int,
                                           var0.new_zeros(npad - ndom)])
     total_energy = torch.sum(areas * var0)
 
+    starts = list(range(0, npad, chunk))
+    per = -(-len(starts) // nshard)
+    if mesh is not None:
+        i = mesh.index(AXES)
+        starts = starts[i * per:(i + 1) * per]
     outs = []
-    for s in range(0, npad, chunk):
+    for s in starts:
         sl = slice(s, s + chunk)
         M = _build_mass_chunk(li[sl], el_area[sl], n_max)
         C = _local_covariance(cov, M, coords[sl], maskf[sl])
@@ -253,6 +267,14 @@ def local_kls_device(tables: KLDomTables, points, cov, nev: int,
         lam, phi, m_d = _truncate_renorm(w, phi, M, energy_target[sl], nev)
         phi = phi * maskf[sl][:, :, None]
         outs.append((lam, phi, M @ phi, m_d))
+    if mesh is not None:
+        # every rank's chunks, padded to `per` of them, in rank order
+        shapes = ((nev,), (n_max, nev), (n_max, nev), ())
+        dts = (dtype, dtype, dtype, torch.int64)
+        outs = [tuple(torch.cat([o[k] for o in outs] + [torch.zeros(
+            ((per - len(outs)) * chunk,) + shapes[k], dtype=dts[k],
+            device=device)]) for k in range(4))]
+        outs = [tuple(all_gather_cat(t, mesh, AXES) for t in outs[0])]
     lam, phi, rho, m_d = (torch.cat(o)[:ndom] for o in zip(*outs))
     return lam, phi, rho, m_d, total_energy
 
@@ -341,7 +363,7 @@ def compute_dd_kl_device(cells, points, epart, ndom, cov, nev: int,
     lam_d, phi_d, rho, m_d, energy = local_kls_device(
         tables, points, cov, nev, relative=relative_local,
         dom_chunk=dom_chunk, dtype=dtype, local_eig=local_eig, device=device,
-        Y0=Y0, generator=generator)
+        Y0=Y0, generator=generator, mesh=mesh)
     _sync(rho)
     t_a = time.perf_counter() - t0
 

@@ -21,8 +21,8 @@ every rank runs the same program on its shard. So:
   order, not an `all_reduce`, whose ring order differs between NCCL and
   gloo and between world sizes: every rank gets the same bits, and a run
   repeats bit for bit. Its operands are Γ-sized vectors or the reduced KL
-  matrix, so the gathered copy is cheap; the mesh counts the calls and the
-  bytes each rank receives.
+  matrix, so the gathered copy is cheap; the mesh counts the calls, their
+  call sites and the bytes each rank receives.
 - Global in, global out: a sharded step takes the whole state on every
   rank and returns it whole on every rank (`all_gather_cat`), as a JAX
   global array is whole to its caller.
@@ -33,8 +33,10 @@ host memory), so no collective here copies to the host by hand.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import sys
 from functools import partial
 
 import torch
@@ -52,9 +54,14 @@ class Mesh:
     n_dom: int
     n_chain: int
     rank: int
-    groups: dict          # axis -> the group of this rank's row or column
+    groups: dict          # axis -> the group of this rank's row or column;
+                          # "all" -> the mesh's ranks, where not the world
     psum_calls: int = 0
     psum_bytes: int = 0   # received by this rank, its own part included
+    # psum calls by call site (file, line): the distinct sites a step
+    # reaches are the counterpart of the all-reduces of a compiled program
+    psum_sites: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     @property
     def shape(self) -> dict:
@@ -85,7 +92,9 @@ class Mesh:
 
     def group(self, axis):
         axes = self._axes(axis)
-        return dist.group.WORLD if axes == AXES else self.groups[axes[0]]
+        if axes == AXES:
+            return self.groups.get("all", dist.group.WORLD)
+        return self.groups[axes[0]]
 
     def block(self, axis, n: int) -> slice:
         """This rank's contiguous share of n items split evenly along
@@ -97,26 +106,33 @@ class Mesh:
         return slice(i * per, (i + 1) * per)
 
 
-def make_mesh(n_dom: int | None = None, n_chain: int = 1) -> Mesh:
-    """Mesh over the ranks of the default process group. Every rank calls
-    it, with the same arguments, since it creates the row and column
-    groups."""
+def make_mesh(n_dom: int | None = None, n_chain: int = 1,
+              ranks=None) -> Mesh | None:
+    """Mesh over the ranks of the default process group, or over its first
+    `ranks` of them (`jax.devices()[:ranks]`, as a weak-scaling sweep takes
+    a growing share of the devices). Every rank of the world calls it, with
+    the same arguments, since it creates the row and column groups; a rank
+    outside the mesh gets None."""
     world, rank = dist.get_world_size(), dist.get_rank()
+    size = world if ranks is None else ranks
     if n_dom is None:
-        n_dom = world // n_chain
-    assert n_dom * n_chain == world, f"{world} ranks != {n_dom} x {n_chain}"
+        n_dom = size // n_chain
+    assert n_dom * n_chain == size <= world, \
+        f"{size} of {world} ranks != {n_dom} x {n_chain}"
     members = {
         "dom": [[d * n_chain + c for d in range(n_dom)]
                 for c in range(n_chain)],
         "chain": [[d * n_chain + c for c in range(n_chain)]
-                  for d in range(n_dom)]}
+                  for d in range(n_dom)],
+        "all": [list(range(size))]}
     groups = {}
     for axis, lists in members.items():
-        for ranks in lists:
-            g = dist.group.WORLD if len(ranks) == world else \
-                dist.new_group(ranks)
-            if rank in ranks:
+        for rs in lists:
+            g = dist.group.WORLD if len(rs) == world else dist.new_group(rs)
+            if rank in rs and (axis != "all" or size < world):
                 groups[axis] = g
+    if rank >= size:
+        return None
     return Mesh(n_dom=n_dom, n_chain=n_chain, rank=rank, groups=groups)
 
 
@@ -133,6 +149,8 @@ def psum(x, mesh: Mesh, axis="dom"):
     bits on every rank and in every run (`lax.psum`'s counterpart)."""
     parts = _gather(x, mesh, axis)
     mesh.psum_calls += 1
+    caller = sys._getframe(1)
+    mesh.psum_sites[caller.f_code.co_filename, caller.f_lineno] += 1
     mesh.psum_bytes += len(parts) * x.numel() * x.element_size()
     out = parts[0]
     for p in parts[1:]:

@@ -151,14 +151,6 @@ def test_ex17_fast_layouts_agree(tmp_path):
     np.testing.assert_array_equal(its["vmap"], its["batched"])
 
 
-def test_ex17_sharded_layout_is_refused(tmp_path):
-    with pytest.raises(SystemExit) as e:
-        tc.run_port("ex17_recyclers_mcmc",
-                    BASE + ["--fast", "--layout", "sharded"], tmp_path)
-    assert "17b" in str(e.value.code)
-    assert not list(tmp_path.iterdir())
-
-
 def test_ex17_certified(tmp_path):
     tc.run_port("ex17_recyclers_mcmc", BASE + ["--nchains", "1", "--nsmp",
                                                "2", "--certify"], tmp_path)

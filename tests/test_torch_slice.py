@@ -96,20 +96,26 @@ def test_port_imports_no_jax():
 
 
 def test_every_module_imports_with_jax_blocked():
-    """Every module of the port (the measurement scripts under bench/ aside)
-    imports in a process where `import jax` fails, and none of them loads
-    the JAX package."""
+    """Every module of the port, the measurement scripts under bench/ and
+    the drivers under examples/ included, imports in a process where
+    `import jax` fails, runs nothing on import, and none of them loads the
+    JAX package."""
     code = (
         "import sys, pkgutil, importlib;"
         "sys.modules['jax'] = None;"
         "import krylov_spdes_tpu_torch as p;"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
-        "p.__name__ + '.') if '.bench' not in m.name];"
+        "p.__name__ + '.')];"
         "[importlib.import_module(n) for n in names];"
         "bad = [m for m in sys.modules if m == 'krylov_spdes_tpu'"
         " or m.startswith('krylov_spdes_tpu.')];"
         "assert not bad, bad;"
-        "assert len(names) > 40, names;"
+        "bench = {n.rsplit('.', 1)[1] for n in names if '.bench.' in n};"
+        "want = {'bench_amg', 'bench_banded', 'bench_chain', "
+        "'bench_dd_chain', 'bench_vmem_eigdef', 'bench_vmem_stretch', "
+        "'stretch_phases', 'collectives'};"
+        "assert want <= bench, want - bench;"
+        "assert len(names) > 100, names;"
         "print(len(names))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)

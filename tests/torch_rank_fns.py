@@ -130,6 +130,29 @@ def kl_rank(cells, points, epart, ndom, nev, L, tables_problem, rho,
     return dict(lam=lam, K=_np(K), lam_dev=lam_dev)
 
 
+def kl_sign_rank(cells, points, epart, ndom, nev, L):
+    """compute_dd_kl_device(mesh=) where each rank's local eigensolver
+    returns its eigenvectors with signs of its own (the freedom the card's
+    batched eigh takes from run to run): vector i of a batch flipped where
+    i + rank is odd. Every tile of the reduced covariance must still come
+    from one set of local bases."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    solve = tdev._local_generalized_eigh
+
+    def signed(C, M, maskf):
+        w, phi = solve(C, M, maskf)
+        i = torch.arange(phi.shape[0])
+        return w, phi * (1.0 - 2.0 * ((i + rank) % 2)).to(phi)[:, None, None]
+
+    tdev._local_generalized_eigh = signed
+    mesh = sharding.make_mesh(dist.get_world_size(), 1)
+    lam, psi = tdev.compute_dd_kl_device(
+        cells, points, epart, ndom, tkl.make_cov("sexp", 1.0, L), nev=nev,
+        forget=1e-6, mesh=mesh, **CPU64)
+    return dict(lam=np.asarray(lam), psi=np.asarray(psi))
+
+
 # --- the sharded chain steps -------------------------------------------------
 
 def stencil_chain_problem(nnode=900):
