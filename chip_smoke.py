@@ -9,7 +9,7 @@ banded AMG, banded DD interiors), utils, the sharded layouts over
 torch.distributed (several ranks on this one card), the example drivers
 (krylov_spdes_tpu_torch/examples/) as a user calls them, the multi-rank
 drivers, and the root measurement drivers' twins
-(krylov_spdes_tpu_torch/bench/bench_*.py).
+(krylov_spdes_tpu_torch/bench/bench*.py, bench.py's headline among them).
 
     python3 chip_smoke.py
 
@@ -122,7 +122,10 @@ Phases:
                 the factorisation, assemble_local_schurs, _masked_pinv, one
                 Schur apply, one NN apply, the deflation setup and one thick
                 restart, each alone, and one solve's `it` with the pinv of
-                the float32 and of the float64 rule; dd_device_share: the
+                the float32 and of the float64 rule; the pinv's kept
+                eigenvalues per tile on the card, on the host's LAPACK
+                from the same float32 blocks (the JAX package's rule) and
+                by the float64 rule; dd_device_share: the
                 device's idle share
                 of one step (torch.profiler); dd_batched: B = 4,
                 seed_dd_chains_batched and 2 make_batched_dd_chain_step
@@ -315,9 +318,10 @@ Phases:
                 DD step at every rank count
  14. bench_drivers  kernel A at get_mesh(32000)'s and get_mesh(65000)'s
                 grids and kernel E at 65k nodes, nvec 16, spdim 48 and 80
-                against their plain versions; then each
+                against their plain versions; then bench.py's twin and each
                 krylov_spdes_tpu_torch/bench/bench_*.py through main([]) at
-                its default size (BENCH_NSOLVE 2 of 8) under DriverWatch
+                its default size (bench_amg's BENCH_NSOLVE 2 of 8) under
+                DriverWatch
                 and a count of kernel E's stretches: every solve below its
                 maxit but the JAX files' capped ones (BENCH_CAPPED) and
                 bench_dd_chain's solves on fields whose float32 interface
@@ -330,12 +334,21 @@ Phases:
                 and banded `it` within 5% and x within 1e-3;
                 bench_vmem_eigdef's x within 1e-3 of the host-looped
                 twin's and `it` within 5% of the twin's range over b and 4
-                last-bit copies
+                last-bit copies; bench.py's twin (`bench_headline`, 250k,
+                8 solves, certified, the DD protocol 32k/30/30/90): path
+                "vmem", kernel C launched 4 x 8 times, each solve's `it`
+                within 5% of the range of kernel C's plain version over
+                the 8 right-hand sides and 4 last-bit copies of the first,
+                x within 1e-3 of the plain x, no host synchronisation in
+                the 8-solve loop (CUDA sync-debug mode "error", and the
+                loop returned before its solves ended), the certified
+                residual ≤ 1e-7 by a float64 residual computed apart, a
+                DD time and every DD `it` below maxit
  15. kernels    one {"kernels": [...]} line with each kernel's launches on
                 its main path (all must be > 0; A's count includes the samg
                 arm of ex06_certified and the drivers, drivers_ranks and
-                bench_drivers phases, E's bench_drivers', each printed
-                there on its own) and its times
+                bench_drivers phases, C's and E's bench_drivers', each
+                printed there on its own) and its times
 
 `python3 chip_smoke.py drivers_ranks bench_drivers` runs the build and
 those phases alone (no kernel list), and its last line names them in
@@ -1550,6 +1563,11 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
     S, b_s, _ = dd_stencil.condense_dd_stencil(plan, coeff)
     Sd = schur.assemble_local_schurs(S)
     kept = schur._masked_pinv(Sd, S.gmask, return_kept=True)[1]
+    # the same float32 blocks through the host's LAPACK: what the JAX
+    # package's rule keeps on them (tests/test_torch_float32_dd.py holds
+    # the two packages' counts equal on the CPU)
+    kept_host = schur._masked_pinv(Sd.cpu(), S.gmask.cpu(),
+                                   return_kept=True)[1]
     A = schur.assembled_schur_operator(S, Sd=Sd)
     M = schur.prepare_neumann_neumann_schur_precond(S, Sd=Sd)
     q = torch.linalg.qr(torch.randn(spdim, spdim, device=dev))[0]
@@ -1603,6 +1621,7 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
          thick_restart_basis_ms=host_ms(
              lambda: int(thick_restart_basis(T, nvec, spdim)[2])),
          pinv_kept_per_tile=kept.tolist(),
+         pinv_kept_per_tile_host_float32=kept_host.tolist(),
          pinv_kept_per_tile_float64_rule=kept64.tolist(),
          n_gammad=n_gd.tolist(), spdim=spdim, nvec=nvec)
     emit("dd_device_share", card=card,
@@ -1623,7 +1642,9 @@ def run_dd_slice(card, mesh250, kernels, metrics, dev="cuda"):
     for k in range(2):
         # the single-chain step from the same state, and from W and 4 copies
         # of W changed in their last bit: in float32 a solve that needs 35
-        # iterations moves by several under such a change, so the batched
+        # iterations moves by several under such a change (the JAX package
+        # in float32 as much, on the same field and copies:
+        # tests/test_torch_float32_dd.py), so the batched
         # count is held within 2 (the JAX tests' own limit between the two
         # layouts, in float64) of the range these span. The batched step
         # from the same 4 copies is held to the same limit: if its counts
@@ -4471,13 +4492,15 @@ def run_drivers_ranks(card):
 
 
 # ---------------------------------------------------------------------------
-# Slice 12 (2 of 2): the root measurement drivers' twins
-# (krylov_spdes_tpu_torch/bench/bench_*.py) through their main(argv) at
-# their default sizes, under DriverWatch, depth cut as BENCH_CUTS says.
+# Slices 12 (2 of 2) and 13: the root measurement drivers' twins
+# (krylov_spdes_tpu_torch/bench/bench.py, bench_*.py) through their
+# main(argv) at their default sizes, under DriverWatch, depth cut as
+# BENCH_RUNS says.
 # ---------------------------------------------------------------------------
 
 # (module, {BENCH_* variable: (value here, the default)}) in run order
 BENCH_RUNS = (
+    ("bench", {}),
     ("bench_chain", {}),
     ("bench_dd_chain", {}),
     ("bench_amg", {"NSOLVE": (2, 8)}),
@@ -4542,22 +4565,51 @@ class StretchWatch:
         self.ve._vmem_eigdef_impl, self.ve._restart_iteration = impl, restart
 
 
+class SyncFreeLoop:
+    """While bench.py's twin runs: its `scaled_solves` (the NSOLVE solves
+    through kernel C queued back to back) runs with CUDA's sync-debug mode
+    at "error", so that any host synchronisation inside it raises; the
+    calls are counted."""
+
+    def __init__(self, mod):
+        self.mod, self.calls, fn = mod, 0, mod.scaled_solves
+        self.saved = fn
+
+        def loop(*a, **kw):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.calls += 1
+            return out
+        mod.scaled_solves = loop
+
+    def close(self):
+        self.mod.scaled_solves = self.saved
+
+
 def run_bench(card, module, cuts, logs):
     """A bench driver's main(["--"]) on the card under DriverWatch, its
     BENCH_* variables set to the cuts: (its result, its JSON lines, the
-    watches, kernel A's and E's launches, seconds)."""
+    watches, the launches of kernels A, C and E, seconds)."""
     import contextlib
     import importlib
     import io
     import os
+    from krylov_spdes_tpu_torch.ops import fused_cg as fc
     from krylov_spdes_tpu_torch.ops import stencil_kernel as sk
     from krylov_spdes_tpu_torch.ops import vmem_eigdef as ve
     mod = importlib.import_module(f"krylov_spdes_tpu_torch.bench.{module}")
     env = {f"BENCH_{k}": str(v) for k, (v, _) in cuts.items()}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
-    sk.stencil_spmv.launches = ve.stretch.launches = 0
+    counters = {"A": sk.stencil_spmv, "C": fc.whole_cg, "E": ve.stretch}
+    for fn in counters.values():
+        fn.launches = 0
     watch, stretches = DriverWatch(BENCH_WATCHED), StretchWatch()
+    loop = SyncFreeLoop(mod) if module == "bench" else None
     buf = io.StringIO()
     log = logs / f"{module}.log"
     t0 = time.perf_counter()
@@ -4572,6 +4624,8 @@ def run_bench(card, module, cuts, logs):
     finally:
         watch.close()
         stretches.close()
+        if loop:
+            loop.close()
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -4585,8 +4639,64 @@ def run_bench(card, module, cuts, logs):
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     check(lines, f"bench_drivers: {module}: no JSON line")
     comments = [ln for ln in out.splitlines() if ln.startswith("# ")]
+    if loop:
+        result["sync_free_calls"] = loop.calls
     return (result, lines, comments, watch, stretches,
-            sk.stencil_spmv.launches, ve.stretch.launches, seconds)
+            {k: fn.launches for k, fn in counters.items()}, seconds)
+
+
+def hold_bench_headline(what, r, line, launches_c, watch, card):
+    """bench.py's twin: the whole-solve route and kernel C's launches (one
+    a solve of the warm and the 3 timed runs), each solve's `it` within 5%
+    of the range that kernel C's plain version spans over the run's
+    right-hand sides and 4 last-bit copies of the first (x within 1e-3 of
+    the plain x on the same bₖ), no host synchronisation inside the solve
+    loop: sync-debug mode "error" around it (SyncFreeLoop), and the loop
+    returning before half its solves' wall time had passed (a wait inside
+    the kernels' own library would hold it to the end); the certified
+    solve ≤ 1e-7 by the certificate and by a float64 residual computed
+    apart (DriverWatch, check_watch); a DD time, every DD `it` below its
+    maxit."""
+    from krylov_spdes_tpu_torch.ops import fused_cg as fc
+    t0 = time.perf_counter()
+    nsolve, ps = r["nsolve"], r["ps"]
+    check(line["path"] == "vmem", f"{what}: path {line['path']}")
+    check(launches_c == 4 * nsolve,
+          f"{what}: {launches_c} launches of kernel C, 4 x {nsolve} implied")
+    check(r["sync_free_calls"] == 4,
+          f"{what}: {r['sync_free_calls']} solve loops under sync-debug mode")
+    check(all(e < 0.5 * s for e, s in zip(r["enqueue_ms"], r["solve_ms"])),
+          f"{what}: the solve loop returned after {r['enqueue_ms']} ms of "
+          f"{r['solve_ms']}: a host wait inside it")
+    plain = [fc.whole_cg_plain(ps, bk, r["maxit"],
+                               r["rtol"] ** 2 * torch.sum(bk * bk))
+             for bk in r["bks"] + perturbed(r["bks"][0], 4)[1:]]
+    its_plain = [int(p[1]) for p in plain]
+    lo, hi = 0.95 * min(its_plain), 1.05 * max(its_plain)
+    check(all(lo <= it <= hi for it in r["its"]),
+          f"{what}: kernel C's its {r['its']} outside the plain envelope "
+          f"{its_plain}")
+    x_err = [rel(x, p[0]) for x, p in zip(r["xs"], plain)]
+    check(max(x_err) <= 1e-3, f"{what}: x rel err {x_err} to the plain x")
+    cert = [c for c in watch.certified if c[0] == "refined_pcg"]
+    check(len(cert) == 1 and line["certified_relres_1e-7"] is not None
+          and line["certified_relres_1e-7"] <= CERT_RTOL,
+          f"{what}: certified {line['certified_relres_1e-7']}, watched "
+          f"{cert}")
+    dd = r["dd"]
+    check(line["dd_chain_ms_per_real"] is not None and dd is not None
+          and max(dd["its"]) < dd["maxit"],
+          f"{what}: DD {line['dd_chain_ms_per_real']} ms, its "
+          f"{dd and dd['its']}")
+    emit("bench_headline", card=card, json_line=line, nnz=r["nnz"],
+         its=r["its"], it_plain_envelope=its_plain, x_rel_err=x_err,
+         solve_ms=r["solve_ms"], enqueue_ms=r["enqueue_ms"],
+         us_per_iteration=1e3 * sorted(r["solve_ms"])[1] / sum(
+             it - 1 for it in r["its"]),
+         kernel_c_launches=launches_c, certified_ms=r["cert_ms"],
+         certified_float64_true_relres=cert[0][2],
+         dd_its=dd["its"], dd_step_ms=dd["step_ms"], dd_config=dd["config"],
+         hold_seconds=time.perf_counter() - t0)
 
 
 def hold_kernel_e_at(St, b, W0, spdim, card):
@@ -4673,7 +4783,7 @@ def run_bench_drivers(card):
     """bench_drivers: kernel A at get_mesh(32000)'s and get_mesh(65000)'s
     grids and kernel E at the vmem benches' shapes against their plain
     versions, then each bench driver at its default size (BENCH_RUNS).
-    Returns (seconds, kernel A's launches, kernel E's launches)."""
+    Returns (seconds, {kernel: launches} of A, C and E)."""
     from krylov_spdes_tpu_torch.bench import bench_vmem_eigdef as bve
     from krylov_spdes_tpu_torch.ops.stencil_kernel import stencil_spmv_plain
     from krylov_spdes_tpu_torch.solvers.cg import _cg_impl, _pcg_impl
@@ -4695,15 +4805,21 @@ def run_bench_drivers(card):
          "BENCH_ENVELOPE unset, as the JAX files' default",
          cuts={m: {k: dict(here=v, default=d) for k, (v, d) in c.items()}
                for m, c in BENCH_RUNS if c})
-    launches_a = launches_e = 0
+    total_launches = dict.fromkeys("ACE", 0)
     seconds = {}
     for module, cuts in BENCH_RUNS:
-        (r, lines, comments, watch, swatch, la, le,
+        (r, lines, comments, watch, swatch, launches,
          sec) = run_bench(card, module, cuts, logs)
+        la, le = launches["A"], launches["E"]
         what = f"bench_drivers: {module}"
         implied_a = check_watch(what, watch, la,
                                 BENCH_CAPPED.get(module, ()))
+        check(module == "bench" or launches["C"] == 0,
+              f"{what}: {launches['C']} launches of kernel C")
         extra = {}
+        if module == "bench":
+            hold_bench_headline(what, r, lines[0], launches["C"], watch,
+                                card)
         if module == "bench_dd_chain":
             extra["at_maxit"] = hold_dd_stalls(what, r)
         if module == "bench_amg":
@@ -4762,8 +4878,8 @@ def run_bench_drivers(card):
                   f"{what}: E's it {r['it_vmem']} outside the twin's "
                   f"last-bit envelope {its}")
             extra.update(x_rel_err=err, it_twin_envelope=its)
-        launches_a += la
-        launches_e += le
+        for k in total_launches:
+            total_launches[k] += launches[k]
         seconds[module] = sec
         emit("bench_driver", script=f"krylov_spdes_tpu_torch/bench/"
              f"{module}.py", env={f"BENCH_{k}": v for k, (v, _) in
@@ -4773,9 +4889,9 @@ def run_bench_drivers(card):
              card=card, **extra)
     total = time.perf_counter() - t_phase
     emit("bench_drivers_total", seconds=total, seconds_by_driver=seconds,
-         kernel_a_launches=launches_a, kernel_e_launches=launches_e,
-         card=card)
-    return total, launches_a, launches_e
+         **{f"kernel_{k.lower()}_launches": n
+            for k, n in total_launches.items()}, card=card)
+    return total, total_launches
 
 
 
@@ -5082,9 +5198,9 @@ def run(card, only=()):
     _, ranks_a = run_drivers_ranks(card)
     kernels["A"]["launches"] += ranks_a
     torch.cuda.empty_cache()
-    _, bench_a, bench_e = run_bench_drivers(card)
-    kernels["A"]["launches"] += bench_a
-    kernels["E"]["launches"] += bench_e
+    _, bench_launches = run_bench_drivers(card)
+    for key, n in bench_launches.items():
+        kernels[key]["launches"] += n
 
     # ---- 13. kernel list -------------------------------------------------------
     for key, k in kernels.items():

@@ -1,5 +1,5 @@
-"""Measurement scripts of the port: the root `bench_*.py` drivers' twins
-(`bench_amg`, `bench_banded`, `bench_chain`, `bench_dd_chain`,
+"""Measurement scripts of the port: the root `bench*.py` drivers' twins
+(`bench`, `bench_amg`, `bench_banded`, `bench_chain`, `bench_dd_chain`,
 `bench_vmem_eigdef`, `bench_vmem_stretch`: the same `BENCH_*` variables,
 defaults and printed JSON keys, a `main(argv)` with `--cpu`) and the
 port's own probes. Each runs as
